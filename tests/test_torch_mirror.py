@@ -1,0 +1,48 @@
+"""The port stands alone: importing every module of pace_tpu_torch, and
+chip_smoke.py, loads neither JAX nor any module of pace_tpu.
+
+The imports run in a fresh interpreter, because this test session has
+imported JAX already and would hide a leak.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import pace_tpu_torch
+names = ["pace_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(pace_tpu_torch.__path__, "pace_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaks = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+    or m == "pace_tpu" or m.startswith("pace_tpu.")
+)
+print(json.dumps({"modules": names, "leaks": leaks}))
+"""
+
+
+def test_port_imports_no_jax_and_no_pace_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["leaks"] == []
+    expected = {
+        "pace_tpu_torch.parallel.halo_kernel",
+        "pace_tpu_torch.ops.fvtp2d_kernel",
+        "pace_tpu_torch.ops.tracer_advection",
+        "pace_tpu_torch.grid.grid_data",
+        "pace_tpu_torch.demos.tracer_advection",
+    }
+    assert expected <= set(result["modules"])
