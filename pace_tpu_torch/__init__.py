@@ -10,8 +10,12 @@ Hopper kernels (``csrc/``, built with ``nvcc`` at first use).
 - ``constants`` / ``dtypes``: physical constants, precision and device policy
 - ``parallel``: cube topology, shard layout, halo exchange
 - ``grid``: gnomonic cubed-sphere grid generation and metric terms
-- ``ops``: PPM transport, flux preparation, tracer advection
-- ``demos``: the Williamson case-1 tracer-transport demo
+- ``ops``: PPM transport, flux preparation, tracer advection, the C-grid
+  half step (d2a2c, c_sw, hydrostatic interfaces, C-grid pressure gradient)
+- ``models``: the dycore state, the baroclinic-wave initial condition and
+  the C-grid half of the acoustic substep
+- ``demos``: the Williamson case-1 tracer-transport demo and the C-grid
+  half step from the baroclinic-wave state
 """
 
 from . import constants, dtypes

@@ -24,7 +24,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 #: kernel library name -> source file under csrc/
-SOURCES = {"halo": "halo.cu", "fvtp2d": "fvtp2d.cu"}
+SOURCES = {
+    "halo": "halo.cu",
+    "fvtp2d": "fvtp2d.cu",
+    "d2a2c": "d2a2c.cu",
+    "c_sw_tail": "c_sw_tail.cu",
+    "hydro": "hydro.cu",
+}
 
 # -fmad=false: no multiply-add contraction, so the kernels round op for op
 # like the plain PyTorch versions (one rounding per elementwise op)

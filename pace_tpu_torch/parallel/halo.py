@@ -397,9 +397,38 @@ class HaloExchanger:
         """Fill ghost cells of a staggered vector pair with rotation/sign flips."""
         return self.slabs.update_vector(u, v, kind=kind, fold=fold)
 
+    def update_scalars(self, qs, stagger: str = "center", fold: str = "x"):
+        """Fill ghost cells of several same-shaped scalar fields."""
+        return self.slabs.update_scalars(qs, stagger=stagger, fold=fold)
+
+    def update_scalar_folds(self, q, stagger: str = "center"):
+        """(q with x-fold corners, q with y-fold corners)."""
+        return self.slabs.update_scalar_folds(q, stagger=stagger)
+
+    def update_vector_folds(self, u, v, kind: str = "dgrid"):
+        """((u_x, v_x), (u_y, v_y))."""
+        return self.slabs.update_vector_folds(u, v, kind=kind)
+
+    def update_vector_fold_pair(
+        self, u, v, kind: str = "dgrid", fold_u: str = "y", fold_v: str = "x"
+    ):
+        """(u in fold_u, v in fold_v) — only the consumed folds."""
+        return self.slabs.update_vector_fold_pair(
+            u, v, kind=kind, fold_u=fold_u, fold_v=fold_v
+        )
+
     def update_scalar_fold_patch(self, q, stagger: str = "center"):
         """(q_xfold, y_corner_patch) — see SlabHalo.update_scalar_fold_patch."""
         return self.slabs.update_scalar_fold_patch(q, stagger=stagger)
+
+    def update_scalars_fold_patches(self, qs, stagger: str = "center"):
+        """[(qi_xfold, yi_corner_patch)] for several same-shaped fields."""
+        return self.slabs.update_scalars_fold_patches(qs, stagger=stagger)
+
+    def start_update_scalars_fold_patches(self, qs, stagger: str = "center"):
+        """Start the fold-patch exchange of several fields; ``.wait()`` on
+        the returned handle gives the pairs."""
+        return self.slabs.start_update_scalars_fold_patches(qs, stagger=stagger)
 
     def sync_vector_interfaces(self, u, v, kind: str = "dgrid"):
         """Force tile-boundary interface values of (u, v) to the edge owner's.

@@ -75,6 +75,21 @@ def _fit_transform(jj, ii, sj, si):
     raise AssertionError("ghost region is not a rigid rotated rectangle")
 
 
+class HaloUpdateHandle:
+    """A started exchange; ``wait()`` completes it (once) and returns its
+    result."""
+
+    def __init__(self, finish):
+        self._finish = finish
+        self._result = None
+
+    def wait(self):
+        if self._finish is not None:
+            self._result = self._finish()
+            self._finish = None
+        return self._result
+
+
 class SlabHalo:
     """Slab-compiled halo exchange bound to one HaloExchanger decomposition."""
 
@@ -294,6 +309,30 @@ class SlabHalo:
             ),
         )
 
+    def scalar_folds_plan(self, stagger: str = "center") -> ExchangePlan:
+        """Both folds of one field: outputs ``qx`` and ``qy``."""
+        return self._plan(
+            ("scalar_folds", stagger),
+            lambda: ExchangePlan(
+                outputs=(("qx", "q", None), ("qy", "q", None)),
+                ops=tuple(("qx", op) for op in self._scalar_ops_for(stagger, "x"))
+                + tuple(("qy", op) for op in self._scalar_ops_for(stagger, "y")),
+            ),
+        )
+
+    def vector_pair_plan(
+        self, kind: str = "dgrid", fold_u: str = "y", fold_v: str = "x"
+    ) -> ExchangePlan:
+        """``uf`` = u in ``fold_u``, ``vf`` = v in ``fold_v``."""
+        return self._plan(
+            ("vector_pair", kind, fold_u, fold_v),
+            lambda: ExchangePlan(
+                outputs=(("uf", "u", None), ("vf", "v", None)),
+                ops=tuple(("uf", op) for op in self._vector_ops_for(kind, fold_u)["u"])
+                + tuple(("vf", op) for op in self._vector_ops_for(kind, fold_v)["v"]),
+            ),
+        )
+
     def sync_plan(self, kind: str = "dgrid") -> ExchangePlan:
         def build():
             if kind not in self._sync_ops:
@@ -313,9 +352,37 @@ class SlabHalo:
     def update_scalar(self, q, stagger: str = "center", fold: str = "x"):
         return exchange({"q": q}, self.scalar_plan(stagger, fold))["q"]
 
+    def update_scalars(self, qs, stagger: str = "center", fold: str = "x"):
+        """Several same-shaped scalar fields, one exchange per field (no
+        stacking copy)."""
+        return [self.update_scalar(q, stagger=stagger, fold=fold) for q in qs]
+
     def update_vector(self, u, v, kind: str = "dgrid", fold: str = "x"):
         out = exchange({"u": u, "v": v}, self.vector_plan(kind, fold))
         return out["u"], out["v"]
+
+    # the x and y folds differ only in the four corner ghost regions
+    def update_scalar_folds(self, q, stagger: str = "center"):
+        """(q_xfold, q_yfold) from one exchange that reads ``q`` once."""
+        out = exchange({"q": q}, self.scalar_folds_plan(stagger))
+        return out["qx"], out["qy"]
+
+    def update_vector_folds(self, u, v, kind: str = "dgrid"):
+        """((u_x, v_x), (u_y, v_y)): one exchange per fold."""
+        return (
+            self.update_vector(u, v, kind=kind, fold="x"),
+            self.update_vector(u, v, kind=kind, fold="y"),
+        )
+
+    def update_vector_fold_pair(
+        self, u, v, kind: str = "dgrid", fold_u: str = "y", fold_v: str = "x"
+    ):
+        """(u in fold_u, v in fold_v): only the fold each component's
+        consumer reads. The D-grid u is y-swept and v x-swept, and c_sw's
+        A-grid consumers read va_x/ua_y only, so the other two fold results
+        are never written."""
+        out = exchange({"u": u, "v": v}, self.vector_pair_plan(kind, fold_u, fold_v))
+        return out["uf"], out["vf"]
 
     def update_scalar_fold_patch(self, q, stagger: str = "center"):
         """(q_xfold, y_corner_patch). The patch is the y-fold's four corner
@@ -323,6 +390,20 @@ class SlabHalo:
         apply_corner_patch(q_xfold, patch) == update_scalar(q, fold="y")."""
         out = exchange({"q": q}, self.fold_patch_plan(stagger))
         return out["qx"], out["qp"]
+
+    def update_scalars_fold_patches(self, qs, stagger: str = "center"):
+        """[(qi_xfold, yi_patch)] for several same-shaped fields."""
+        return [self.update_scalar_fold_patch(q, stagger=stagger) for q in qs]
+
+    def start_update_scalars_fold_patches(self, qs, stagger: str = "center"):
+        """Two-call form of :meth:`update_scalars_fold_patches`: returns a
+        handle whose ``wait()`` gives the pairs. With the six tiles on one
+        device nothing is in flight between the calls; the handle defers the
+        exchange to ``wait()``."""
+        qs = list(qs)
+        return HaloUpdateHandle(
+            lambda: self.update_scalars_fold_patches(qs, stagger=stagger)
+        )
 
     def sync_vector_interfaces(self, u, v, kind: str = "dgrid"):
         """Tile-edge interface values of (u, v) set to the edge owner's."""

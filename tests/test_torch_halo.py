@@ -2,7 +2,8 @@
 
 The port's plain exchange (strip updates) must reproduce pace_tpu's slab
 exchange exactly: its XLA assembly on the CPU and its Pallas kernel in
-interpret mode, for the staggers and kinds the transport slice uses. The
+interpret mode, for the staggers and kinds the transport and C-grid slices
+use. The
 index maps the CUDA gather kernel reads are checked here too, by applying
 them with plain tensor indexing (the kernel itself runs only on the card).
 """
@@ -139,7 +140,86 @@ def test_sync_interfaces_exact(halos, lead):
     np.testing.assert_array_equal(gv.numpy(), np.asarray(out["v"]))
 
 
-@pytest.mark.parametrize("which", ["scalar", "vector", "fold_patch", "sync"])
+@pytest.mark.parametrize("fold", ["x", "y"])
+def test_update_scalars_exact(halos, fold):
+    jhalo, thalo = halos
+    qs = [_field(jhalo, 20), _field(jhalo, 21)]
+    ref = jhalo.update_scalars([jnp.asarray(q) for q in qs], fold=fold)
+    got = thalo.update_scalars([_t(q) for q in qs], fold=fold)
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_update_scalar_corner_stagger_exact(halos):
+    """The corner-staggered exchange of c_sw's divergence."""
+    jhalo, thalo = halos
+    q = _field(jhalo, 22, extra_y=1, extra_x=1)
+    ref = jhalo.update_scalar(jnp.asarray(q), stagger="corner", fold="x")
+    got = thalo.update_scalar(_t(q), stagger="corner", fold="x")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["3d", "4d"])
+def test_update_scalar_folds_exact(halos, lead):
+    jhalo, thalo = halos
+    q = _field(jhalo, 23, lead)
+    rx, ry = jhalo.update_scalar_folds(jnp.asarray(q))
+    gx, gy = thalo.update_scalar_folds(_t(q))
+    np.testing.assert_array_equal(gx.numpy(), np.asarray(rx))
+    np.testing.assert_array_equal(gy.numpy(), np.asarray(ry))
+    assert not np.array_equal(gx.numpy(), gy.numpy())
+
+
+def test_update_vector_folds_exact(halos):
+    jhalo, thalo = halos
+    u, v = _field(jhalo, 24, extra_x=1), _field(jhalo, 25, extra_y=1)
+    ref = jhalo.update_vector_folds(jnp.asarray(u), jnp.asarray(v), kind="cgrid")
+    got = thalo.update_vector_folds(_t(u), _t(v), kind="cgrid")
+    for gpair, rpair in zip(got, ref):
+        for g, r in zip(gpair, rpair):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("kind", ["dgrid", "agrid"])
+def test_update_vector_fold_pair_exact(halos, kind):
+    """Only the consumed folds: u in the y fold, v in the x fold."""
+    jhalo, thalo = halos
+    d = kind == "dgrid"
+    u = _field(jhalo, 26, extra_y=1 if d else 0)
+    v = _field(jhalo, 27, extra_x=1 if d else 0)
+    ru, rv = jhalo.update_vector_fold_pair(jnp.asarray(u), jnp.asarray(v), kind=kind)
+    gu, gv = thalo.update_vector_fold_pair(_t(u), _t(v), kind=kind)
+    np.testing.assert_array_equal(gu.numpy(), np.asarray(ru))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(rv))
+    wu, _ = thalo.update_vector(_t(u), _t(v), kind=kind, fold="y")
+    _, wv = thalo.update_vector(_t(u), _t(v), kind=kind, fold="x")
+    assert torch.equal(gu, wu) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("started", [False, True], ids=["direct", "start-wait"])
+def test_update_scalars_fold_patches_exact(halos, started):
+    jhalo, thalo = halos
+    qs = [_field(jhalo, 28), _field(jhalo, 29), _field(jhalo, 30)]
+    jq, tq = [jnp.asarray(q) for q in qs], [_t(q) for q in qs]
+    if started:
+        ref = jhalo.start_update_scalars_fold_patches(jq).wait()
+        hdl = thalo.start_update_scalars_fold_patches(tq)
+        got = hdl.wait()
+        assert hdl.wait() is got  # a second wait returns the same result
+    else:
+        ref = jhalo.update_scalars_fold_patches(jq)
+        got = thalo.update_scalars_fold_patches(tq)
+    assert len(got) == 3
+    for (gx, gp), (rx, rp) in zip(got, ref):
+        np.testing.assert_array_equal(gx.numpy(), np.asarray(rx))
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(rp))
+
+
+@pytest.mark.parametrize(
+    "which",
+    ["scalar", "vector", "fold_patch", "sync", "scalar_folds", "vector_pair", "corner"],
+)
 def test_kernel_index_maps_match_plain(halos, which):
     """The gather kernel's per-point maps reproduce the strip updates."""
     _, thalo = halos
@@ -148,6 +228,14 @@ def test_kernel_index_maps_match_plain(halos, which):
         plan, inputs = slabs.scalar_plan("center", "y"), {"q": _field(thalo, 7)}
     elif which == "fold_patch":
         plan, inputs = slabs.fold_patch_plan("center"), {"q": _field(thalo, 7)}
+    elif which == "scalar_folds":
+        plan, inputs = slabs.scalar_folds_plan("center"), {"q": _field(thalo, 7)}
+    elif which == "corner":
+        plan = slabs.scalar_plan("corner", "x")
+        inputs = {"q": _field(thalo, 7, extra_y=1, extra_x=1)}
+    elif which == "vector_pair":
+        plan = slabs.vector_pair_plan("agrid", "y", "x")
+        inputs = {"u": _field(thalo, 8), "v": _field(thalo, 9)}
     elif which == "vector":
         plan = slabs.vector_plan("dgrid", "x")
         inputs = {"u": _field(thalo, 8, extra_y=1), "v": _field(thalo, 9, extra_x=1)}

@@ -44,5 +44,16 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.ops.tracer_advection",
         "pace_tpu_torch.grid.grid_data",
         "pace_tpu_torch.demos.tracer_advection",
+        "pace_tpu_torch.ops.corners",
+        "pace_tpu_torch.ops.d2a2c",
+        "pace_tpu_torch.ops.d2a2c_kernel",
+        "pace_tpu_torch.ops.c_sw",
+        "pace_tpu_torch.ops.c_sw_tail_kernel",
+        "pace_tpu_torch.ops.pgrad",
+        "pace_tpu_torch.ops.hydro_kernel",
+        "pace_tpu_torch.models.fv3.init_baroclinic",
+        "pace_tpu_torch.models.fv3.state",
+        "pace_tpu_torch.models.fv3.acoustics",
+        "pace_tpu_torch.demos.cgrid_half_step",
     }
     assert expected <= set(result["modules"])
