@@ -17,17 +17,24 @@ Phases (any failure raises and exits non-zero):
    4 ulp of each output's maximum (d2a2c on the rings a consumer reads); the
    hydrostatic chain, whose sums and cancelling differences amplify
    rounding, within three times the plain version's own float32 error,
-   measured against its float64 evaluation (see ``check_against_f64``);
+   measured against its float64 evaluation (see ``check_against_f64``).
+   Nonhydrostatic vertical, on the fields of one nonhydrostatic half step:
+   the interface heights and the vertical solve (sim1) by the same float64
+   yardstick, ``updatedz_c`` within 4 ulp of each output's maximum;
 3. small-input references in float64, kernel path on the card against the
    plain path on the CPU: the tracer-advection demo at C24 and the C-grid
-   half step at C24, within 1e-12;
+   half step at C24 in both configurations, within 1e-12;
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
-   monotonicity, finiteness), and the C-grid half of an acoustic substep
-   from the baroclinic-wave state at C192, npz=79, f32, 4 repeats
+   monotonicity, finiteness); the C-grid half of an acoustic substep from
+   the baroclinic-wave state at C192, npz=79, f32, 4 repeats, hydrostatic
    (finiteness, positivity and conservation of delpc, range of ptc and pkz,
-   and the balance of the unperturbed state);
+   and the balance of the unperturbed state); and the same half step in the
+   nonhydrostatic configuration of the dycore benchmark (those gates, the
+   exact launch counts per half step, negative thicknesses, heights
+   decreasing downward with the bottom interface on the surface, and bounds
+   on the perturbation pressure and the surface velocity);
 5. where the time goes: two more steps of each demo under
    ``torch.profiler``, device time by kernel.
 
@@ -37,6 +44,7 @@ The last lines are the card's name and power limit (``nvidia-smi``), the
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -81,12 +89,42 @@ D2A2C_OPS_PER_POINT = 95
 C_SW_TAIL_OPS_PER_POINT = 98
 HYDRO_OPS_PER_POINT = 13
 
+# Operations per output point of the nonhydrostatic vertical's kernels:
+#   heights: the running sum and its subtraction from the surface height = 2;
+#   updatedz_c, per interface and cell: four interface averages 8, upwind
+#          compares 4, flux products 4, both flux differences and their sums
+#          4, zh*area 1, the denominator 4, the division 1 = 26;
+#   sim1, per layer and column, each term once (the kernel forms some twice):
+#          dm, t_v, p_full 6, the pressure sum, floor, log and log-mean
+#          pressure 6, pprime and B 5, interface mass and velocity 7, the row
+#          (r, a, b, c, rhs) 11, elimination 6, substitution and divergence 3,
+#          delz with the floor 6, pprime_new 2, pp at the interface 5, w 4 = 61.
+HEIGHTS_OPS_PER_POINT = 2
+UPDATEDZ_C_OPS_PER_POINT = 26
+SIM1_OPS_PER_POINT = 61
+
 #: acceptance threshold of the balance check: rms C-grid wind tendency of the
 #: unperturbed baroclinic state over rms pressure-gradient term. The demo on
 #: the CPU in float64, where it equals pace_tpu to 1e-12, gives 0.0517 at C24
 #: and 0.0563 at C48 (``cgrid_half_step --npz 79 --device cpu --f64``); the
 #: ratio grows slowly with resolution, and a missing or wrong term gives O(1)
 BALANCE_RATIO_MAX = 0.15
+
+#: gates of the nonhydrostatic half step from the balanced baroclinic-wave
+#: state (w = 0, delz hydrostatic). The demo on the CPU in float64, where it
+#: equals pace_tpu to 1e-12, gives at npz=79 (``cgrid_half_step --npz 79
+#: --device cpu --f64 --nonhydrostatic``) max|pp|/pe 1.455e-05 at C24 and
+#: 3.596e-05 at C48, and max|ws_c| 2.101e-04 and 2.522e-04 m/s. Both grow with
+#: resolution (2.5x and 1.2x per doubling, so about 2.2e-04 and 3.6e-04 m/s
+#: at C192), and in float32 pp also carries the rounding of two pressures
+#: near 1e5 Pa, amplified where a thin layer's log-pressure difference
+#: cancels (1.8e-04 at C24 on the CPU). The limits leave a factor of five
+#: or more; a solve on inconsistent heights gives pp of the order of pe.
+PP_REL_MAX = 2e-3
+WS_MAX = 2e-3
+#: kernel launches of one nonhydrostatic half step
+NH_LAUNCHES_PER_HALF_STEP = {"heights": 3, "updatedz_c": 1, "sim1": 1, "hydro": 1,
+                             "d2a2c": 1, "c_sw_tail": 1}
 
 
 def log(*a):
@@ -158,6 +196,13 @@ def check_against_f64(label, got, plain, truth, ulp):
     return err
 
 
+def log_identical(label, got, ref):
+    """Log how many points of ``got`` differ from the plain version at all."""
+    n_diff = int((got != ref).sum())
+    log(f"[check] {label}: {n_diff} of {got.numel()} points differ from the plain version"
+        + (" (bit-identical)" if n_diff == 0 else ""))
+
+
 def profile_steps(label, step_fn, wall_ms):
     """Two calls of ``step_fn`` under torch.profiler: device time by kernel."""
     from torch.autograd import DeviceType
@@ -206,7 +251,10 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     from pace_tpu_torch.ops import d2a2c_kernel as d2k
     from pace_tpu_torch.ops import fvtp2d_kernel as fk
     from pace_tpu_torch.ops import hydro_kernel as hyk
+    from pace_tpu_torch.ops import nonhydro as nh_ops
     from pace_tpu_torch.ops import pgrad as pgrad_ops
+    from pace_tpu_torch.ops import sim1_kernel as s1k
+    from pace_tpu_torch.ops import updatedz_kernel as uzk
     from pace_tpu_torch.ops.folds import CornerPatch
     from pace_tpu_torch.ops.fvtp2d import fvtp2d_best
     from pace_tpu_torch.ops.stencil_utils import bcast_k, x_iface_diff, y_iface_diff
@@ -537,7 +585,98 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             results["hydro"] = dict(max_abs_err=h_err["pk"], ms=ms, plain_ms=plain_ms,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
             log(f"[time] hydro plain version (all five outputs): {plain_ms:.4f} ms")
-    del h_ref, h_got, pruned, delpc, ptc, ccase, st, cgrid, chalo, cslabs
+    del h_ref, h_got, pruned, delpc, ptc
+    torch.cuda.empty_cache()
+
+    # --- the nonhydrostatic vertical's kernels, on the fields of one
+    #     nonhydrostatic half step from the same state
+    ncase = dataclasses.replace(ccase, config=cdemo.AcousticConfig(hydrostatic=False),
+                                phis_folds=chalo.update_scalar_folds(st.phis))
+    nhalf = cdemo.step(ncase)
+    torch.cuda.synchronize()
+    area = cgrid.area
+
+    def dbl(*ts):
+        return [t.double() for t in ts]
+
+    # interface heights of the exchanged delz (x fold)
+    z_args = (nhalf.delz_x, nhalf.phis_folds[0])
+    z_got = uzk.heights_from_delz_cuda(*z_args)
+    z_ref = nh_ops.heights_from_delz_plain(*z_args)
+    z_f64 = nh_ops.heights_from_delz_plain(*dbl(*z_args))
+    torch.cuda.synchronize()
+    z_err = check_against_f64("heights zh", z_got, z_ref, z_f64, ulp)
+    log_identical("heights zh", z_got, z_ref)
+    ms = time_ms(lambda: uzk.heights_from_delz_cuda(*z_args), 20)
+    plain_ms = time_ms(lambda: nh_ops.heights_from_delz_plain(*z_args), 5)
+    # one-call yardstick: the running sum alone, on a field flipped beforehand
+    # (the function also flips twice and subtracts the sum from the surface)
+    flipped = torch.flip(z_args[0], dims=(1,)).contiguous()
+    if not torch.equal(torch.flip(torch.cumsum(flipped, dim=1), dims=(1,)),
+                       z_ref[:, -1:] - z_ref[:, :-1]):
+        log("[check] heights: torch.cumsum of the flipped field rounds unlike the plain "
+            "version's own sum")
+    library_ms = time_ms(lambda: torch.cumsum(flipped, dim=1), 20)
+    b_ms, b_by = bound(nbytes(*z_args, z_got), HEIGHTS_OPS_PER_POINT * z_args[0].numel(), f32)
+    results["heights"] = dict(max_abs_err=z_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=library_ms)
+    log(f"[time] heights {tuple(z_args[0].shape)} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.cumsum {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del z_got, z_ref, z_f64, flipped
+
+    # updatedz_c on the heights of both folds and c_sw's area fluxes; the
+    # outermost ring is unspecified
+    u_args = (nhalf.zh_x, nhalf.zh_y, nhalf.cg.xfx, nhalf.cg.yfx, area, dt2)
+    u_got = uzk.updatedz_c_cuda(*u_args)
+    u_ref = nh_ops.updatedz_c_plain(*u_args)
+    torch.cuda.synchronize()
+    u_err = {}
+    for nm, a, b in zip(("zh", "ws"), u_got, u_ref):
+        a, b = ring(a, 1), ring(b, 1)
+        u_err[nm] = check_close(f"updatedz_c {nm} (outer ring off)", a, b,
+                                4 * ulp * float(b.abs().max()))
+        log_identical(f"updatedz_c {nm}", a, b)
+    ms = time_ms(lambda: uzk.updatedz_c_cuda(*u_args), 20)
+    plain_ms = time_ms(lambda: nh_ops.updatedz_c_plain(*u_args), 3)
+    b_ms, b_by = bound(nbytes(*u_args[:5], *u_got),
+                       UPDATEDZ_C_OPS_PER_POINT * u_got[0].numel(), f32)
+    results["updatedz_c"] = dict(max_abs_err=u_err["zh"], ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[time] updatedz_c {tuple(u_args[0].shape)} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # sim1 as riem_solver_c calls it; held on the columns a consumer reads
+    # (p_grad_c reads one cell beyond the compute domain; further out the
+    # area fluxes, hence ws_c and the solve, are not valid by design)
+    zh_c = u_got[0]
+    s_args = (nhalf.w_x, zh_c[:, 1:] - zh_c[:, :-1], nhalf.cg.ptc, nhalf.cg.delpc,
+              nhalf.pkz_c, u_got[1])
+    del u_got, u_ref, zh_c
+    p_fac = ncase.config.p_fac
+    def sim1_plain(args):
+        w_n, dz_n, pp_n = nh_ops.sim1_solver(*args, dt2, cgrid.ptop)
+        return w_n, nh_ops._p_fac_floor(dz_n, *args[2:5], cgrid.ptop, p_fac), pp_n
+
+    s_got = s1k.sim1_solver_cuda(*s_args, dt2, cgrid.ptop, p_fac=p_fac)
+    s_ref = sim1_plain(s_args)
+    s_f64 = sim1_plain(dbl(*s_args))
+    torch.cuda.synchronize()
+    s_err = {}
+    for nm, a, b, c in zip(("w", "delz", "pp"), s_got, s_ref, s_f64):
+        a, b, c = ring(a, 2), ring(b, 2), ring(c, 2)
+        s_err[nm] = check_against_f64(f"sim1 {nm} (outer 2 rings off)", a, b, c, ulp)
+        log_identical(f"sim1 {nm}", a, b)
+    del s_f64
+    ms = time_ms(lambda: s1k.sim1_solver_cuda(*s_args, dt2, cgrid.ptop, p_fac=p_fac), 20)
+    plain_ms = time_ms(lambda: sim1_plain(s_args), 2)
+    b_ms, b_by = bound(nbytes(*s_args, *s_got), SIM1_OPS_PER_POINT * s_args[0].numel(), f32)
+    # max_abs_err of the line: pp's [Pa], the pressure gradient's operand
+    results["sim1"] = dict(max_abs_err=s_err["pp"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+    log(f"[time] sim1 {tuple(s_args[0].shape)} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del s_got, s_ref, s_args, u_args, z_args, nhalf, ncase, area
+    del ccase, st, cgrid, chalo, cslabs
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -554,33 +693,48 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
 
     def half_outputs(half):
         cg = half.cg
-        return dict(
+        outs = dict(
             uc_x=half.uc_x, vc_x=half.vc_x, uc_y=half.uc_y, vc_y=half.vc_y, u_y=half.u_y,
             v_x=half.v_x, delp_x=half.delp_x, pt_x=half.pt_x, pkz_c=half.pkz_c,
             delpc=cg.delpc, ptc=cg.ptc, cg_uc=cg.uc, cg_vc=cg.vc, ut=cg.ut, vt=cg.vt,
             ua=cg.ua, va=cg.va, divg_d=cg.divg_d, xfx=cg.xfx, yfx=cg.yfx,
         )
+        if half.zh_c is not None:  # the nonhydrostatic half step
+            outs.update(w_x=half.w_x, delz_x=half.delz_x, zh_x=half.zh_x, zh_y=half.zh_y,
+                        zh_c=half.zh_c, delz_c=half.delz_c, pe_c=half.pe_c)
+        return outs
 
-    a = half_outputs(cdemo.step(cdemo.build_case(24, 8, device=dev, dtype=torch.float64)))
-    b = half_outputs(cdemo.step(cdemo.build_case(24, 8, device="cpu", dtype=torch.float64)))
-    rel, worst = 0.0, ""
-    for nm in a:
-        x, y = a[nm][i].cpu(), b[nm][i]
-        r = float((x - y).abs().max() / y.abs().max())
-        if r > rel:
-            rel, worst = r, nm
-    log(f"[check] C24 npz=8 f64 C-grid half step, card kernels vs CPU plain path: max diff "
-        f"{rel:.3e} of each output's maximum (largest on {worst or 'none'})")
-    if not rel <= 1e-12:
-        raise AssertionError(f"C24 f64 C-grid half step departs from the CPU reference: "
-                             f"{rel} on {worst}")
-    del a, b
+    for hydrostatic in (True, False):
+        label = "C-grid half step" if hydrostatic else "nonhydrostatic C-grid half step"
+        small = dict(n=24, npz=8, dtype=torch.float64, hydrostatic=hydrostatic)
+        a_half = cdemo.step(cdemo.build_case(device=dev, **small))
+        b_half = cdemo.step(cdemo.build_case(device="cpu", **small))
+        a, b = half_outputs(a_half), half_outputs(b_half)
+        rel, worst = 0.0, ""
+        for nm in a:
+            x, y = a[nm][i].cpu(), b[nm][i]
+            r = float((x - y).abs().max() / y.abs().max())
+            if r > rel:
+                rel, worst = r, nm
+        if not hydrostatic:
+            # ws_c is the difference of two heights over dt2: held to their scale
+            r = float((a_half.ws_c[i].cpu() - b_half.ws_c[i]).abs().max()
+                      / (b_half.zh_c[i].abs().max() / cdemo.DT2))
+            if r > rel:
+                rel, worst = r, "ws_c"
+        log(f"[check] C24 npz=8 f64 {label}, card kernels vs CPU plain path: max diff "
+            f"{rel:.3e} of each output's maximum (largest on {worst or 'none'})")
+        if not rel <= 1e-12:
+            raise AssertionError(f"C24 f64 {label} departs from the CPU reference: "
+                                 f"{rel} on {worst}")
+    del a, b, a_half, b_half
 
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
     # ------------------------------------------------------------------
     counters = {"halo": hk.LAUNCHES, "fvtp2d": fk.LAUNCHES, "fvtp2d_tracer": fk.LAUNCHES,
-                "d2a2c": d2k.LAUNCHES, "c_sw_tail": ck.LAUNCHES, "hydro": hyk.LAUNCHES}
+                "d2a2c": d2k.LAUNCHES, "c_sw_tail": ck.LAUNCHES, "hydro": hyk.LAUNCHES,
+                "heights": uzk.LAUNCHES, "updatedz_c": uzk.LAUNCHES, "sim1": s1k.LAUNCHES}
 
     def zero_counters():
         for c in counters.values():
@@ -654,6 +808,60 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     if failures:
         raise AssertionError("C-grid slice checks failed: " + "; ".join(failures))
 
+    # --- the nonhydrostatic C-grid half step through the same entry point
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nout = cdemo.run(n=n, npz=npz, repeats=c_repeats, device=dev, dtype=torch.float32,
+                     hydrostatic=False)
+    n_launches = {k: c[k] for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[nh-cgrid] C{n} npz={npz} f32 dt2={cdemo.DT2:.4f} s a_imp={nout['case'].config.a_imp} "
+        f"p_fac={nout['case'].config.p_fac}, {c_repeats} half steps: "
+        f"{nout['ms_per_half_step']:.3f} ms/half step after the first (ms: "
+        f"{', '.join(f'{t:.3f}' for t in nout['step_ms'])}), peak memory {peak_gb:.2f} GB")
+    log(f"[nh-cgrid] finite {nout['finite']}, delpc min {nout['delpc_min']:.4f}, mass drift "
+        f"{nout['mass_drift']:.3e}, ptc in [{nout['ptc_min']:.4f}, {nout['ptc_max']:.4f}], pkz "
+        f"in [{nout['pkz_min']:.6f}, {nout['pkz_max']:.6f}], max|uc| {nout['uc_max']:.3f}")
+    log(f"[nh-cgrid] delz_c max {nout['delz_c_max']:.4f} m, least interface spacing "
+        f"{nout['dzh_min']:.4f} m, bottom interface off the surface by {nout['zs_pin_err']:.3e} "
+        f"m (from phis/g by {nout['zs_err']:.3e} m), max|pp|/pe {nout['pp_rel_max']:.4e} "
+        f"(allowed {PP_REL_MAX}), max|ws_c| {nout['ws_max']:.4e} m/s (allowed {WS_MAX})")
+    log(f"[nh-cgrid] launches: {n_launches}")
+    failures = []
+    if not nout["finite"]:
+        failures.append("non-finite fields")
+    if not nout["delpc_min"] > 0:
+        failures.append(f"delpc min {nout['delpc_min']}")
+    if not nout["mass_drift"] <= 1e-6:
+        failures.append(f"delpc mass drift {nout['mass_drift']}")
+    if not (nout["pt_floor"] <= nout["ptc_min"] and nout["ptc_max"] <= nout["pt_ceil"]):
+        failures.append(f"ptc range [{nout['ptc_min']}, {nout['ptc_max']}]")
+    if not nout["delz_c_max"] < 0:
+        failures.append(f"delz_c max {nout['delz_c_max']}")
+    if not nout["dzh_min"] > 0:
+        failures.append(f"interface heights not decreasing: {nout['dzh_min']}")
+    if nout["zs_pin_err"] != 0:
+        failures.append(f"bottom interface off the surface by {nout['zs_pin_err']}")
+    if not nout["pp_rel_max"] <= PP_REL_MAX:
+        failures.append(f"max|pp|/pe {nout['pp_rel_max']}")
+    if not nout["ws_max"] <= WS_MAX:
+        failures.append(f"max|ws_c| {nout['ws_max']}")
+    for k, per_step in NH_LAUNCHES_PER_HALF_STEP.items():
+        if n_launches[k] != per_step * c_repeats:
+            failures.append(f"kernel {k} launched {n_launches[k]} times, expected "
+                            f"{per_step * c_repeats}")
+    if n_launches["halo"] <= 0:
+        failures.append("kernel halo not launched on the nonhydrostatic C-grid path")
+    nbal = cdemo.steady_state_residual(n, npz, device=dev, dtype=torch.float32,
+                                       hydrostatic=False)
+    log(f"[nh-cgrid] unperturbed state: rms wind tendency {nbal['tendency_rms']:.4e} m/s^2, "
+        f"rms pressure-gradient term {nbal['pgf_rms']:.4e} m/s^2, ratio {nbal['ratio']:.4f} "
+        f"(allowed {BALANCE_RATIO_MAX})")
+    if not 0 < nbal["ratio"] <= BALANCE_RATIO_MAX:
+        failures.append(f"balance ratio {nbal['ratio']}")
+    if failures:
+        raise AssertionError("nonhydrostatic C-grid slice checks failed: " + "; ".join(failures))
+
     # ------------------------------------------------------------------
     # 5. where the time goes: two more steps under the profiler (after the
     #    launch counts were read), device time by kernel
@@ -666,6 +874,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     profile_steps("tracer advection", transport_step, out["ms_per_step"])
     profile_steps("C-grid half step", lambda: cdemo.step(cout["case"]),
                   cout["ms_per_half_step"])
+    profile_steps("nonhydrostatic C-grid half step", lambda: cdemo.step(nout["case"]),
+                  nout["ms_per_half_step"])
 
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
@@ -674,11 +884,15 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         "d2a2c": ("pace_tpu_torch/csrc/d2a2c.cu", "pace_tpu/ops/d2a2c_pallas.py:33"),
         "c_sw_tail": ("pace_tpu_torch/csrc/c_sw_tail.cu", "pace_tpu/ops/c_sw_tail_pallas.py:197"),
         "hydro": ("pace_tpu_torch/csrc/hydro.cu", "pace_tpu/ops/hydro_pallas.py:37"),
+        "heights": ("pace_tpu_torch/csrc/updatedz.cu", "pace_tpu/ops/updatedz_pallas.py:52"),
+        "updatedz_c": ("pace_tpu_torch/csrc/updatedz.cu", "pace_tpu/ops/updatedz_pallas.py:129"),
+        "sim1": ("pace_tpu_torch/csrc/sim1.cu", "pace_tpu/ops/sim1_pallas.py:29"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
-        by_path = {"tracer_advection": launches[name], "cgrid_half_step": c_launches[name]}
+        by_path = {"tracer_advection": launches[name], "cgrid_half_step": c_launches[name],
+                   "nh_cgrid_half_step": n_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

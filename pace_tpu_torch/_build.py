@@ -30,6 +30,8 @@ SOURCES = {
     "d2a2c": "d2a2c.cu",
     "c_sw_tail": "c_sw_tail.cu",
     "hydro": "hydro.cu",
+    "updatedz": "updatedz.cu",
+    "sim1": "sim1.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op for op

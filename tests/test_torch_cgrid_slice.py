@@ -144,9 +144,11 @@ def test_state_round_trip_and_demo_state(halves):
 
 
 def test_nonhydrostatic_configuration_is_refused(halves):
+    """Without ``w`` and ``delz``, that is: with them the nonhydrostatic
+    branch runs (tests/test_torch_nh_cgrid_slice.py)."""
     st, case = halves["tstate"], halves["case"]
-    with pytest.raises(NotImplementedError, match="rows 8, 9 and 11"):
-        c_grid_half(st.u, st.v, st.w, st.delp, st.pt, st.delz, st.phis, case.grid, case.halo,
+    with pytest.raises(ValueError, match="requires w and delz"):
+        c_grid_half(st.u, st.v, None, st.delp, st.pt, None, st.phis, case.grid, case.halo,
                     AcousticConfig(hydrostatic=False), demo.DT2, case.grid.ptop)
 
 

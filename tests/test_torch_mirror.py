@@ -51,6 +51,9 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.ops.c_sw_tail_kernel",
         "pace_tpu_torch.ops.pgrad",
         "pace_tpu_torch.ops.hydro_kernel",
+        "pace_tpu_torch.ops.nonhydro",
+        "pace_tpu_torch.ops.updatedz_kernel",
+        "pace_tpu_torch.ops.sim1_kernel",
         "pace_tpu_torch.models.fv3.init_baroclinic",
         "pace_tpu_torch.models.fv3.state",
         "pace_tpu_torch.models.fv3.acoustics",
