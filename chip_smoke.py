@@ -19,16 +19,20 @@ Phases (any failure raises and exits non-zero):
    rounding, within three times the plain version's own float32 error,
    measured against its float64 evaluation (see ``check_against_f64``).
    Nonhydrostatic vertical, on the fields of one nonhydrostatic half step:
-   the interface heights and the vertical solve (sim1) by the same float64
-   yardstick, ``updatedz_c`` within 4 ulp of each output's maximum;
+   the interface heights by the same float64 yardstick, ``updatedz_c``
+   within 4 ulp of each output's maximum, and the vertical solve (sim1) on
+   the columns a consumer reads, within 4 ulp of each output's maximum on
+   the compute domain in float32 and within ``SIM1_F64_REL_TOL`` of it in
+   float64 (see ``check_sim1``);
 3. small-input references in float64, kernel path on the card against the
    plain path on the CPU: the tracer-advection demo at C24 and the C-grid
-   half step at C24 in both configurations, within 1e-12;
+   half step at C24 in both configurations, within 1e-12, and the three
+   outputs of the vertical solve on that half step's fields;
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
    monotonicity, finiteness); the C-grid half of an acoustic substep from
-   the baroclinic-wave state at C192, npz=79, f32, 4 repeats, hydrostatic
+   the baroclinic-wave state at C192, npz=79, f32, 8 repeats, hydrostatic
    (finiteness, positivity and conservation of delpc, range of ptc and pkz,
    and the balance of the unperturbed state); and the same half step in the
    nonhydrostatic configuration of the dycore benchmark (those gates, the
@@ -47,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -201,6 +206,31 @@ def log_identical(label, got, ref):
     n_diff = int((got != ref).sum())
     log(f"[check] {label}: {n_diff} of {got.numel()} points differ from the plain version"
         + (" (bit-identical)" if n_diff == 0 else ""))
+
+
+#: float64 tolerances of the vertical solve, as shares of each output's
+#: maximum on the compute domain. ``w`` and ``pp`` come from the difference of
+#: two pressures near 1e5 Pa (amplified up to a few thousand times where a
+#: thin layer's log-pressure difference cancels), so one ulp of a ``log``
+#: shows as about 1e-10 of ``pp`` and, divided by the small mass of the thin
+#: top layers, 1e-8 of ``w``; the thicknesses carry no such difference.
+SIM1_F64_REL_TOL = {"w": 1e-6, "delz": 1e-12, "pp": 1e-7}
+
+
+def check_sim1(label, got, ref, rel_tol):
+    """Hold the vertical solve's ``(w, delz, pp)`` against the plain version
+    on the columns a consumer reads (the compute domain and one cell around
+    it, which ``p_grad_c`` reads), each within ``rel_tol[name]`` of the plain
+    output's maximum on the compute domain alone: the ghost columns, solved
+    from area fluxes that are not valid there, must not widen the tolerance.
+    Returns the max abs errors by name."""
+    errs = {}
+    for nm, a, b in zip(("w", "delz", "pp"), got, ref):
+        scale = float(ring(b, 3).abs().max())
+        errs[nm] = check_close(f"{label} {nm} (compute domain and one cell)",
+                               ring(a, 2), ring(b, 2), rel_tol[nm] * scale)
+        log_identical(f"{label} {nm}", ring(a, 2), ring(b, 2))
+    return errs
 
 
 def profile_steps(label, step_fn, wall_ms):
@@ -612,10 +642,10 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # one-call yardstick: the running sum alone, on a field flipped beforehand
     # (the function also flips twice and subtracts the sum from the surface)
     flipped = torch.flip(z_args[0], dims=(1,)).contiguous()
-    if not torch.equal(torch.flip(torch.cumsum(flipped, dim=1), dims=(1,)),
-                       z_ref[:, -1:] - z_ref[:, :-1]):
-        log("[check] heights: torch.cumsum of the flipped field rounds unlike the plain "
-            "version's own sum")
+    z_lib = z_ref[:, -1:] - torch.flip(torch.cumsum(flipped, dim=1), dims=(1,))
+    log(f"[check] heights: surface height less torch.cumsum of the flipped field differs from "
+        f"the plain version at {int((z_lib != z_ref[:, :-1]).sum())} points")
+    del z_lib
     library_ms = time_ms(lambda: torch.cumsum(flipped, dim=1), 20)
     b_ms, b_by = bound(nbytes(*z_args, z_got), HEIGHTS_OPS_PER_POINT * z_args[0].numel(), f32)
     results["heights"] = dict(max_abs_err=z_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -653,20 +683,33 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
               nhalf.pkz_c, u_got[1])
     del u_got, u_ref, zh_c
     p_fac = ncase.config.p_fac
+
     def sim1_plain(args):
         w_n, dz_n, pp_n = nh_ops.sim1_solver(*args, dt2, cgrid.ptop)
         return w_n, nh_ops._p_fac_floor(dz_n, *args[2:5], cgrid.ptop, p_fac), pp_n
 
+    # float32: the difference of two pressures near 1e5 Pa leaves the plain
+    # version itself further from its float64 evaluation than w and pp are
+    # large, so that error is no yardstick here. The kernel keeps the plain
+    # version's operation order, and on this card torch.log rounds as logf
+    # and torch.cumsum sums in sequence: held to 4 ulp of each output's
+    # maximum on the compute domain, i.e. to the same roundings.
     s_got = s1k.sim1_solver_cuda(*s_args, dt2, cgrid.ptop, p_fac=p_fac)
     s_ref = sim1_plain(s_args)
-    s_f64 = sim1_plain(dbl(*s_args))
     torch.cuda.synchronize()
-    s_err = {}
-    for nm, a, b, c in zip(("w", "delz", "pp"), s_got, s_ref, s_f64):
-        a, b, c = ring(a, 2), ring(b, 2), ring(c, 2)
-        s_err[nm] = check_against_f64(f"sim1 {nm} (outer 2 rings off)", a, b, c, ulp)
-        log_identical(f"sim1 {nm}", a, b)
-    del s_f64
+    s_err = check_sim1("sim1 f32", s_got, s_ref, dict.fromkeys(("w", "delz", "pp"), 4 * ulp))
+    # float64 at the same shapes, where the amplified rounding is far below
+    # the values: the kernel's formulas, independent of how log rounds
+    s_args64 = dbl(*s_args)
+    s_got64 = s1k.sim1_solver_cuda(*s_args64, dt2, cgrid.ptop, p_fac=p_fac)
+    s_f64 = sim1_plain(s_args64)
+    torch.cuda.synchronize()
+    check_sim1("sim1 f64", s_got64, s_f64, SIM1_F64_REL_TOL)
+    for nm, a, b in zip(("w", "delz", "pp"), s_ref, s_f64):
+        log(f"[check] sim1 {nm}: the plain float32 version is "
+            f"{float((ring(a, 3).double() - ring(b, 3)).abs().max()):.3e} from its float64 "
+            f"evaluation on the compute domain (max {float(ring(b, 3).abs().max()):.3e})")
+    del s_f64, s_got64, s_args64
     ms = time_ms(lambda: s1k.sim1_solver_cuda(*s_args, dt2, cgrid.ptop, p_fac=p_fac), 20)
     plain_ms = time_ms(lambda: sim1_plain(s_args), 2)
     b_ms, b_by = bound(nbytes(*s_args, *s_got), SIM1_OPS_PER_POINT * s_args[0].numel(), f32)
@@ -708,7 +751,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         label = "C-grid half step" if hydrostatic else "nonhydrostatic C-grid half step"
         small = dict(n=24, npz=8, dtype=torch.float64, hydrostatic=hydrostatic)
         a_half = cdemo.step(cdemo.build_case(device=dev, **small))
-        b_half = cdemo.step(cdemo.build_case(device="cpu", **small))
+        b_case = cdemo.build_case(device="cpu", **small)
+        b_half = cdemo.step(b_case)
         a, b = half_outputs(a_half), half_outputs(b_half)
         rel, worst = 0.0, ""
         for nm in a:
@@ -727,7 +771,20 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         if not rel <= 1e-12:
             raise AssertionError(f"C24 f64 {label} departs from the CPU reference: "
                                  f"{rel} on {worst}")
-    del a, b, a_half, b_half
+    # the vertical solve's own outputs (the half step keeps only delz and pe
+    # + pp of them, and w_new nowhere): the kernel on the card against the
+    # plain version on the CPU, on the fields of the CPU's nonhydrostatic
+    # half step (the loop's last)
+    s_cpu = (b_half.w_x, b_half.zh_c[:, 1:] - b_half.zh_c[:, :-1], b_half.cg.ptc,
+             b_half.cg.delpc, b_half.pkz_c, b_half.ws_c)
+    ptop24, p_fac24 = b_case.grid.ptop, b_case.config.p_fac
+    w_n, dz_n, pp_n = nh_ops.sim1_solver(*s_cpu, b_case.dt2, ptop24)
+    dz_n = nh_ops._p_fac_floor(dz_n, *s_cpu[2:5], ptop24, p_fac24)
+    s_card = s1k.sim1_solver_cuda(*[t.to(dev).contiguous() for t in s_cpu], b_case.dt2,
+                                  ptop24, p_fac=p_fac24)
+    check_sim1("C24 npz=8 f64 sim1, card kernel vs CPU plain version",
+               [t.cpu() for t in s_card], (w_n, dz_n, pp_n), SIM1_F64_REL_TOL)
+    del a, b, a_half, b_half, b_case, s_cpu, s_card, w_n, dz_n, pp_n
 
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
@@ -769,73 +826,73 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     if failures:
         raise AssertionError("slice checks failed: " + "; ".join(failures))
 
-    # --- the C-grid half step through its entry point
-    c_repeats = 4
-    zero_counters()
-    torch.cuda.reset_peak_memory_stats(dev)
-    cout = cdemo.run(n=n, npz=npz, repeats=c_repeats, device=dev, dtype=torch.float32)
-    c_launches = {k: c[k] for k, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    log(f"[cgrid] C{n} npz={npz} f32 dt2={cdemo.DT2:.4f} s, {c_repeats} half steps: "
-        f"{cout['ms_per_half_step']:.3f} ms/half step after the first (ms: "
-        f"{', '.join(f'{t:.3f}' for t in cout['step_ms'])}), peak memory {peak_gb:.2f} GB")
-    log(f"[cgrid] finite {cout['finite']}, delpc min {cout['delpc_min']:.4f}, mass drift "
-        f"{cout['mass_drift']:.3e}, ptc in [{cout['ptc_min']:.4f}, {cout['ptc_max']:.4f}] "
-        f"(allowed [{cout['pt_floor']:.4f}, {cout['pt_ceil']:.4f}]), pkz in "
-        f"[{cout['pkz_min']:.6f}, {cout['pkz_max']:.6f}], max|uc| {cout['uc_max']:.3f}")
-    log(f"[cgrid] launches: {c_launches}")
-    failures = []
-    if not cout["finite"]:
-        failures.append("non-finite fields")
-    if not cout["delpc_min"] > 0:
-        failures.append(f"delpc min {cout['delpc_min']}")
-    if not cout["mass_drift"] <= 1e-6:
-        failures.append(f"delpc mass drift {cout['mass_drift']}")
-    if not (cout["pt_floor"] <= cout["ptc_min"] and cout["ptc_max"] <= cout["pt_ceil"]):
-        failures.append(f"ptc range [{cout['ptc_min']}, {cout['ptc_max']}]")
-    if not (0 < cout["pkz_min"] and cout["pkz_max"] < 1.2):
-        failures.append(f"pkz range [{cout['pkz_min']}, {cout['pkz_max']}]")
+    # --- the C-grid half step through its entry point, in both configurations
+    # eight repeats and their median: the second or third repeat can take up
+    # to eight times as long as the later ones on the host's clock at
+    # unchanged device time. Those are the repeats in which PyTorch's caching
+    # allocator still calls cudaMalloc (the previous result is alive
+    # while the next is computed); the count per repeat is printed
+    c_repeats = 8
+
+    def run_cgrid(tag, hydrostatic):
+        """Drive the half step with the counters zeroed before and read after;
+        log it and apply the gates both configurations share."""
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        o = cdemo.run(n=n, npz=npz, repeats=c_repeats, device=dev, dtype=torch.float32,
+                      hydrostatic=hydrostatic)
+        counts = {k: c[k] for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        o["ms_median"] = statistics.median(o["step_ms"][1:])
+        cfg = o["case"].config
+        solver = "" if hydrostatic else f" a_imp={cfg.a_imp} p_fac={cfg.p_fac}"
+        log(f"[{tag}] C{n} npz={npz} f32 dt2={cdemo.DT2:.4f} s{solver}, {c_repeats} half steps: "
+            f"{o['ms_per_half_step']:.3f} ms/half step after the first, median "
+            f"{o['ms_median']:.3f} (ms: "
+            f"{', '.join(f'{t:.3f}' for t in o['step_ms'])}), device allocations per repeat "
+            f"{o['device_allocs']}, peak memory {peak_gb:.2f} GB")
+        log(f"[{tag}] finite {o['finite']}, delpc min {o['delpc_min']:.4f}, mass drift "
+            f"{o['mass_drift']:.3e}, ptc in [{o['ptc_min']:.4f}, {o['ptc_max']:.4f}] "
+            f"(allowed [{o['pt_floor']:.4f}, {o['pt_ceil']:.4f}]), pkz in "
+            f"[{o['pkz_min']:.6f}, {o['pkz_max']:.6f}], max|uc| {o['uc_max']:.3f}")
+        log(f"[{tag}] launches: {counts}")
+        failures = []
+        if not o["finite"]:
+            failures.append("non-finite fields")
+        if not o["delpc_min"] > 0:
+            failures.append(f"delpc min {o['delpc_min']}")
+        if not o["mass_drift"] <= 1e-6:
+            failures.append(f"delpc mass drift {o['mass_drift']}")
+        if not (o["pt_floor"] <= o["ptc_min"] and o["ptc_max"] <= o["pt_ceil"]):
+            failures.append(f"ptc range [{o['ptc_min']}, {o['ptc_max']}]")
+        if not (0 < o["pkz_min"] and o["pkz_max"] < 1.2):
+            failures.append(f"pkz range [{o['pkz_min']}, {o['pkz_max']}]")
+        return o, counts, failures
+
+    def check_balance(tag, hydrostatic, failures):
+        """Balance of the unperturbed (steady) state, after the counts were read."""
+        bal = cdemo.steady_state_residual(n, npz, device=dev, dtype=torch.float32,
+                                          hydrostatic=hydrostatic)
+        log(f"[{tag}] unperturbed state: rms wind tendency {bal['tendency_rms']:.4e} m/s^2, rms "
+            f"pressure-gradient term {bal['pgf_rms']:.4e} m/s^2, ratio {bal['ratio']:.4f} "
+            f"(allowed {BALANCE_RATIO_MAX})")
+        if not 0 < bal["ratio"] <= BALANCE_RATIO_MAX:
+            failures.append(f"balance ratio {bal['ratio']}")
+
+    cout, c_launches, failures = run_cgrid("cgrid", hydrostatic=True)
     for k in ("halo", "d2a2c", "c_sw_tail", "hydro"):
         if c_launches[k] <= 0:
             failures.append(f"kernel {k} not launched on the C-grid path")
-    # balance of the unperturbed (steady) state, after the counts were read
-    bal = cdemo.steady_state_residual(n, npz, device=dev, dtype=torch.float32)
-    log(f"[cgrid] unperturbed state: rms wind tendency {bal['tendency_rms']:.4e} m/s^2, rms "
-        f"pressure-gradient term {bal['pgf_rms']:.4e} m/s^2, ratio {bal['ratio']:.4f} "
-        f"(allowed {BALANCE_RATIO_MAX})")
-    if not 0 < bal["ratio"] <= BALANCE_RATIO_MAX:
-        failures.append(f"balance ratio {bal['ratio']}")
+    check_balance("cgrid", True, failures)
     if failures:
         raise AssertionError("C-grid slice checks failed: " + "; ".join(failures))
 
-    # --- the nonhydrostatic C-grid half step through the same entry point
-    zero_counters()
-    torch.cuda.reset_peak_memory_stats(dev)
-    nout = cdemo.run(n=n, npz=npz, repeats=c_repeats, device=dev, dtype=torch.float32,
-                     hydrostatic=False)
-    n_launches = {k: c[k] for k, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    log(f"[nh-cgrid] C{n} npz={npz} f32 dt2={cdemo.DT2:.4f} s a_imp={nout['case'].config.a_imp} "
-        f"p_fac={nout['case'].config.p_fac}, {c_repeats} half steps: "
-        f"{nout['ms_per_half_step']:.3f} ms/half step after the first (ms: "
-        f"{', '.join(f'{t:.3f}' for t in nout['step_ms'])}), peak memory {peak_gb:.2f} GB")
-    log(f"[nh-cgrid] finite {nout['finite']}, delpc min {nout['delpc_min']:.4f}, mass drift "
-        f"{nout['mass_drift']:.3e}, ptc in [{nout['ptc_min']:.4f}, {nout['ptc_max']:.4f}], pkz "
-        f"in [{nout['pkz_min']:.6f}, {nout['pkz_max']:.6f}], max|uc| {nout['uc_max']:.3f}")
+    # --- the nonhydrostatic configuration of the dycore benchmark
+    nout, n_launches, failures = run_cgrid("nh-cgrid", hydrostatic=False)
     log(f"[nh-cgrid] delz_c max {nout['delz_c_max']:.4f} m, least interface spacing "
         f"{nout['dzh_min']:.4f} m, bottom interface off the surface by {nout['zs_pin_err']:.3e} "
         f"m (from phis/g by {nout['zs_err']:.3e} m), max|pp|/pe {nout['pp_rel_max']:.4e} "
         f"(allowed {PP_REL_MAX}), max|ws_c| {nout['ws_max']:.4e} m/s (allowed {WS_MAX})")
-    log(f"[nh-cgrid] launches: {n_launches}")
-    failures = []
-    if not nout["finite"]:
-        failures.append("non-finite fields")
-    if not nout["delpc_min"] > 0:
-        failures.append(f"delpc min {nout['delpc_min']}")
-    if not nout["mass_drift"] <= 1e-6:
-        failures.append(f"delpc mass drift {nout['mass_drift']}")
-    if not (nout["pt_floor"] <= nout["ptc_min"] and nout["ptc_max"] <= nout["pt_ceil"]):
-        failures.append(f"ptc range [{nout['ptc_min']}, {nout['ptc_max']}]")
     if not nout["delz_c_max"] < 0:
         failures.append(f"delz_c max {nout['delz_c_max']}")
     if not nout["dzh_min"] > 0:
@@ -852,13 +909,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                             f"{per_step * c_repeats}")
     if n_launches["halo"] <= 0:
         failures.append("kernel halo not launched on the nonhydrostatic C-grid path")
-    nbal = cdemo.steady_state_residual(n, npz, device=dev, dtype=torch.float32,
-                                       hydrostatic=False)
-    log(f"[nh-cgrid] unperturbed state: rms wind tendency {nbal['tendency_rms']:.4e} m/s^2, "
-        f"rms pressure-gradient term {nbal['pgf_rms']:.4e} m/s^2, ratio {nbal['ratio']:.4f} "
-        f"(allowed {BALANCE_RATIO_MAX})")
-    if not 0 < nbal["ratio"] <= BALANCE_RATIO_MAX:
-        failures.append(f"balance ratio {nbal['ratio']}")
+    check_balance("nh-cgrid", False, failures)
     if failures:
         raise AssertionError("nonhydrostatic C-grid slice checks failed: " + "; ".join(failures))
 
@@ -873,9 +924,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
 
     profile_steps("tracer advection", transport_step, out["ms_per_step"])
     profile_steps("C-grid half step", lambda: cdemo.step(cout["case"]),
-                  cout["ms_per_half_step"])
+                  cout["ms_median"])
     profile_steps("nonhydrostatic C-grid half step", lambda: cdemo.step(nout["case"]),
-                  nout["ms_per_half_step"])
+                  nout["ms_median"])
 
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),

@@ -159,20 +159,30 @@ def run(n: int = 48, npz: int = 8, repeats: int = 3, device="cuda",
     """Build the case and take ``repeats`` half steps from its state.
     Returns the last result, the wall ms of each repeat, ms per half step
     over the repeats after the first (the first also builds the halo index
-    maps) and :func:`diagnostics`."""
+    maps), on a card the number of device allocations (``cudaMalloc`` calls
+    of PyTorch's caching allocator) each repeat made, and
+    :func:`diagnostics`."""
     case = build_case(n, npz, device, dtype, hydrostatic=hydrostatic)
-    sync = torch.cuda.synchronize if case.state.u.is_cuda else (lambda: None)
-    step_ms = []
+    dev = case.state.u.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def n_device_allocs():
+        return torch.cuda.memory_stats(dev).get("num_device_alloc", 0) if on_card else 0
+
+    step_ms, device_allocs = [], []
     half = None
     for _ in range(repeats):
         sync()
+        a0 = n_device_allocs()
         t0 = time.perf_counter()
         half = step(case)
         sync()
         step_ms.append(1e3 * (time.perf_counter() - t0))
+        device_allocs.append(n_device_allocs() - a0)
     steady = step_ms[1:] or step_ms
     return {
-        "case": case, "half": half, "step_ms": step_ms,
+        "case": case, "half": half, "step_ms": step_ms, "device_allocs": device_allocs,
         "ms_per_half_step": sum(steady) / len(steady),
         **diagnostics(case, half),
     }

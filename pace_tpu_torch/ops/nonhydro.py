@@ -212,16 +212,22 @@ def _p_fac_floor(delz_new, pt, delp, pkz, ptop, p_fac: float):
 
 def sim1_solver_best(w, delz, pt, delp, pkz, ws, dt: float, ptop: float = 0.0,
                      a_imp: float = 1.0, p_fac: float = 0.05):
-    """Dispatched sim1: CUDA tensors with ``a_imp == 1`` take the column
-    kernel, which applies the ``p_fac`` floor itself (``p_fac <= 0`` skips
-    it); CPU tensors take :func:`sim1_solver` and :func:`_p_fac_floor`.
+    """Dispatched sim1: CUDA tensors take the column kernel, which applies
+    the ``p_fac`` floor itself (``p_fac <= 0`` skips it); CPU tensors take
+    :func:`sim1_solver` and :func:`_p_fac_floor`.
 
-    The semi-implicit blend ``a_imp != 1`` has no kernel: as in ``pace_tpu``,
-    whose Pallas kernel is dispatched for ``a_imp == 1`` only, CUDA tensors
-    then run the plain formulation. That is the operator's own dispatch (the
-    reference configurations all set ``a_imp = 1``), not a fallback from a
-    failed launch."""
-    if route(w, delz, pt, delp, pkz, ws) == "kernel" and a_imp == 1.0:
+    The kernel covers the backward-Euler solve ``a_imp == 1`` only, as the
+    Pallas kernel of ``pace_tpu`` does (the reference configurations all set
+    ``a_imp = 1``). CUDA tensors with another ``a_imp`` raise
+    ``NotImplementedError``: the θ-blend exists in the plain version alone,
+    which runs on CPU tensors."""
+    if route(w, delz, pt, delp, pkz, ws) == "kernel":
+        if a_imp != 1.0:
+            raise NotImplementedError(
+                f"the sim1 kernel solves a_imp == 1 (backward Euler) only, got a_imp={a_imp}; "
+                "the semi-implicit blend has a plain version for CPU tensors (sim1_solver) "
+                "and no CUDA kernel yet"
+            )
         return sim1_solver_cuda(w, delz, pt, delp, pkz, ws, float(dt), float(ptop),
                                 p_fac=float(p_fac))
     w_new, delz_new, pp = sim1_solver(w, delz, pt, delp, pkz, ws, dt, ptop, a_imp=a_imp)
