@@ -38,7 +38,14 @@ Phases (any failure raises and exits non-zero):
    nonhydrostatic configuration of the dycore benchmark (those gates, the
    exact launch counts per half step, negative thicknesses, heights
    decreasing downward with the bottom interface on the surface, and bounds
-   on the perturbation pressure and the surface velocity);
+   on the perturbation pressure and the surface velocity); and one acoustic
+   substep as far as it is ported (the C-grid half, then ``d_sw``, the
+   dissipation heating, ``updatedz_d`` and ``riem_solver3``) in that
+   configuration, 8 timed repeats after the warm ones (the exact launch
+   counts per substep, conservation of mass, heat and w across ``d_sw``, the
+   heating cap, negative thicknesses, the bottom interface on the surface,
+   bounds on the perturbation pressure and the surface velocity, and the
+   size of the D-grid wind tendency of the unperturbed state);
 5. where the time goes: two more steps of each demo under
    ``torch.profiler``, device time by kernel.
 
@@ -108,6 +115,19 @@ HEIGHTS_OPS_PER_POINT = 2
 UPDATEDZ_C_OPS_PER_POINT = 26
 SIM1_OPS_PER_POINT = 61
 
+# Operations per output point of the D-grid half's kernels:
+#   fvtp2d multi: per field the scheme's count at its hord
+#          (FVTP2D_OPS_PER_POINT), the two updated areas 4 once;
+#   d_sw tail at nord 3 with every switch on, each term once (the kernel
+#          forms each corner gradient twice): kinetic energy 10, the
+#          Smagorinsky coefficient 16, chi 2, three Laplacians 9 each, the
+#          high-order term and the band blend 7, dtke 2, u_new and v_new 6
+#          each, the four edge increments and energies 14, heat 6 = 96;
+#   flux_height_update: two flux differences and two area-flux differences 4,
+#          their sums 4, zh*area 1, the division 1 = 10.
+D_SW_TAIL_OPS_PER_POINT = 96
+FLUX_HEIGHT_OPS_PER_POINT = 10
+
 #: acceptance threshold of the balance check: rms C-grid wind tendency of the
 #: unperturbed baroclinic state over rms pressure-gradient term. The demo on
 #: the CPU in float64, where it equals pace_tpu to 1e-12, gives 0.0517 at C24
@@ -130,6 +150,35 @@ WS_MAX = 2e-3
 #: kernel launches of one nonhydrostatic half step
 NH_LAUNCHES_PER_HALF_STEP = {"heights": 3, "updatedz_c": 1, "sim1": 1, "hydro": 1,
                              "d2a2c": 1, "c_sw_tail": 1}
+
+
+#: gates of the substep up to the vertical solve (``[substep]``), from the
+#: demo on the CPU in float64 at npz=79 (``acoustic_substep --npz 79 --device
+#: cpu --f64``; it equals pace_tpu to 1e-12 there). max|pp|/pe after
+#: riem_solver3 is 2.603e-05 at C24 and 6.309e-05 at C48, max|ws| 7.937e-05 and
+#: 1.089e-04 m/s: 2.4x and 1.4x per doubling, so about 3.6e-04 and 2.1e-04 m/s
+#: at C192, and PP_REL_MAX and WS_MAX above leave a factor of five or more.
+#: sum(delp area), sum(pt delp area) and sum(w delp area) change across d_sw
+#: by 1.6e-16 and 1.2e-16 in float64 (w stays 0); in float32 at C24 by
+#: 1.951e-12 and 1.404e-10, the rounding of each cell's update; DRIFT_MAX
+#: leaves a factor of 70, and a flux that is not synced across a tile edge
+#: shows at 1e-6. The heating increment reaches 4.492e-03 K at C24 and
+#: 1.217e-03 K at C48 under a cap of 7.143e-03 K; in float32 it is read back as
+#: a difference of two pt near 1e3 K, so two ulp of max pt are allowed on top.
+#: The unperturbed state is steady, so the D-grid pressure gradient (not
+#: ported yet) must cancel the wind change of d_sw: the ratio of that
+#: change's rms tendency to the rms C-grid pressure-gradient term, whose
+#: balance is gated above, is 1.006 at C24 and 0.981 at C48 (1.088 and 0.968
+#: at npz=8); a missing momentum term or a wrong vorticity flux moves it by
+#: tens of percent (3.27 at C12, where truncation error dominates).
+DRIFT_MAX = 1e-8
+D_SW_BALANCE_RANGE = (0.8, 1.25)
+#: kernel launches of one nonhydrostatic substep up to the vertical solve
+LAUNCHES_PER_SUBSTEP = {"d2a2c": 1, "c_sw_tail": 1, "updatedz_c": 1, "heights": 4, "sim1": 2,
+                        "hydro": 2, "fvtp2d": 2, "fvtp2d_multi": 1, "d_sw_tail": 1,
+                        "flux_height_update": 1, "halo": 44}
+#: launches the demo makes once, when it builds its case: phis in both folds
+SUBSTEP_SETUP_LAUNCHES = {"halo": 2}
 
 
 def log(*a):
@@ -233,8 +282,9 @@ def check_sim1(label, got, ref, rel_tol):
     return errs
 
 
-def profile_steps(label, step_fn, wall_ms):
-    """Two calls of ``step_fn`` under torch.profiler: device time by kernel."""
+def profile_steps(label, step_fn, wall_ms, top=10):
+    """Two calls of ``step_fn`` under torch.profiler: device time by kernel,
+    the ``top`` largest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -252,7 +302,7 @@ def profile_steps(label, step_fn, wall_ms):
     if busy > 0:
         log(f"[profile] {label}: device time per step {busy:.3f} ms of {wall_ms:.3f} ms "
             f"wall (busy share {busy / wall_ms:.3f})")
-        for name, t, n_calls in rows[:10]:
+        for name, t, n_calls in rows[:top]:
             log(f"[profile] {t:9.3f} ms {100 * t / busy:5.1f}% x{n_calls:<3d} {name[:90]}")
     else:
         log(f"[profile] {label}: the profiler recorded no device time: not measured")
@@ -272,21 +322,26 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from pace_tpu_torch import _build
+    from pace_tpu_torch import _build, constants
+    from pace_tpu_torch.demos import acoustic_substep as sdemo
     from pace_tpu_torch.demos import cgrid_half_step as cdemo
     from pace_tpu_torch.demos import tracer_advection as demo
     from pace_tpu_torch.ops import c_sw as c_sw_ops
     from pace_tpu_torch.ops import c_sw_tail_kernel as ck
     from pace_tpu_torch.ops import d2a2c as d2a2c_ops
     from pace_tpu_torch.ops import d2a2c_kernel as d2k
+    from pace_tpu_torch.ops import d_sw as d_sw_ops
+    from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
     from pace_tpu_torch.ops import fvtp2d_kernel as fk
     from pace_tpu_torch.ops import hydro_kernel as hyk
     from pace_tpu_torch.ops import nonhydro as nh_ops
     from pace_tpu_torch.ops import pgrad as pgrad_ops
     from pace_tpu_torch.ops import sim1_kernel as s1k
     from pace_tpu_torch.ops import updatedz_kernel as uzk
+    from pace_tpu_torch.ops.delnflux import delnflux, lap_corner_weights
     from pace_tpu_torch.ops.folds import CornerPatch
     from pace_tpu_torch.ops.fvtp2d import fvtp2d_best
+    from pace_tpu_torch.ops.fxadv import flux_prep_x, flux_prep_y
     from pace_tpu_torch.ops.stencil_utils import bcast_k, x_iface_diff, y_iface_diff
     from pace_tpu_torch.ops.tracer_advection import subcycle_count
     from pace_tpu_torch.parallel import halo_kernel as hk
@@ -722,6 +777,144 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     del ccase, st, cgrid, chalo, cslabs
     torch.cuda.empty_cache()
 
+    # --- the D-grid half's kernels, on the fields of one substep in the
+    #     dycore benchmark's configuration: d_sw's own sequence up to each
+    #     kernel's operands (real ghost columns and cube corners, not noise)
+    scase = sdemo.build_case(n, npz, device=dev, dtype=f32)
+    sgrid, shalo, scfg = scase.grid, scase.halo, scase.config.d_sw
+    dt = 2.0 * scase.dt2
+    st = scase.state
+    chalf, _dhalf = sdemo.step(scase)
+    del _dhalf
+    crx, xfx, ut = flux_prep_x(chalf.uc_x, chalf.vc_x, sgrid, dt)
+    cry, yfx, vt = flux_prep_y(chalf.uc_y, chalf.vc_y, sgrid, dt)
+    vort = d_sw_ops.absolute_vorticity_centers(chalf.u_y, chalf.v_x, sgrid)
+    vort_x, vort_p = shalo.update_scalar_fold_patch(vort)
+    fl = fvtp2d_best(chalf.delp_x, chalf.delp_y, crx, cry, xfx, yfx, sgrid.area, scfg.hord_dp)
+    mfx, mfy = shalo.sync_vector_interfaces(fl.fx, fl.fy, kind="cgrid")
+    del fl
+    trio = [(chalf.pt_x, chalf.pt_y, scfg.hord_tm, True),
+            (vort_x, CornerPatch(vort_p), scfg.hord_vt, False),
+            (chalf.w_x, chalf.w_y, scfg.hord_vt, True)]
+    m_args = (trio, crx, cry, xfx, yfx, sgrid.area)
+    m_got = fk.fvtp2d_multi_cuda(*m_args, mfx=mfx, mfy=mfy)
+    m_ref = fk.fvtp2d_multi_plain(*m_args, mfx=mfx, mfy=mfy)
+    torch.cuda.synchronize()
+    m_err = 0.0
+    for fname, got, ref, (qx, qy, hord, use_mf) in zip(("pt", "vort", "w"), m_got, m_ref, trio):
+        kw = dict(mfx=mfx, mfy=mfy) if use_mf else {}
+        single = fk.fvtp2d_cuda(qx, qy, crx, cry, xfx, yfx, sgrid.area, hord, **kw)
+        torch.cuda.synchronize()
+        for nm, a, b, c in zip(("fx", "fy"), got, ref, single):
+            if not torch.equal(a, c):
+                raise AssertionError(f"fvtp2d multi {fname} {nm} differs from the single-field "
+                                     f"launch at {int((a != c).sum())} points")
+            a, b = consumed(a), consumed(b)
+            scale = float(b.abs().max())
+            # w = 0 in the analytic state: its fluxes are exactly zero on both sides
+            e = check_close(f"fvtp2d multi {fname} {nm} (consumed region; equal to the "
+                            f"single-field launch everywhere)", a, b, 4 * ulp * scale)
+            log_identical(f"fvtp2d multi {fname} {nm}", a, b)
+            if fname == "pt":
+                m_err = max(m_err, e)
+        del single
+    # the instantiations and the y-fold form the main path does not reach
+    # (hord 8 and 7, a full-array y fold, four fields), against single launches
+    extra = [(chalf.pt_x, chalf.pt_x, 8, False), (vort_x, CornerPatch(vort_p), 7, True),
+             (chalf.delp_x, chalf.delp_y, 1, False), (chalf.pt_x, chalf.pt_y, 5, True)]
+    e_got = fk.fvtp2d_multi_cuda(extra, *m_args[1:], mfx=mfx, mfy=mfy)
+    for (qx, qy, hord, use_mf), pair in zip(extra, e_got):
+        kw = dict(mfx=mfx, mfy=mfy) if use_mf else {}
+        single = fk.fvtp2d_cuda(qx, qy, crx, cry, xfx, yfx, sgrid.area, hord, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(pair[0], single[0]) and torch.equal(pair[1], single[1])):
+            raise AssertionError(f"fvtp2d multi hord {hord} differs from the single-field launch")
+    log("[check] fvtp2d multi, four fields with hord 8, 7, 1, 5 (one y fold a full array): "
+        "equal to the single-field launches")
+    del extra, e_got, single, pair
+    ms = time_ms(lambda: fk.fvtp2d_multi_cuda(*m_args, mfx=mfx, mfy=mfy), 20)
+    plain_ms = time_ms(lambda: fk.fvtp2d_multi_plain(*m_args, mfx=mfx, mfy=mfy), 2)
+    single_ms = time_ms(lambda: [
+        fk.fvtp2d_cuda(qx, qy, crx, cry, xfx, yfx, sgrid.area, hord,
+                       **(dict(mfx=mfx, mfy=mfy) if use_mf else {}))
+        for qx, qy, hord, use_mf in trio], 20)
+    m_in = [t for qx, qy, _h, _m in trio for t in (qx, qy.data)]
+    m_out = [t for pair in m_got for t in pair]
+    m_ops = (sum(FVTP2D_OPS_PER_POINT[6 if h_ == 5 else h_] for _x, _y, h_, _m in trio) + 4)
+    b_ms, b_by = bound(nbytes(*m_in, crx, cry, xfx, yfx, sgrid.area, mfx, mfy, *m_out),
+                       m_ops * vort.numel(), f32)
+    # max_abs_err of the line: the pt fluxes' (the three fields differ in unit)
+    results["fvtp2d_multi"] = dict(max_abs_err=m_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None)
+    log(f"[time] fvtp2d multi 3 x {tuple(vort.shape)} f32 hord {[t[2] for t in trio]}: kernel "
+        f"{ms:.4f} ms, three single-field launches {single_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    del m_ref, m_in, m_out
+
+    # the tail's operands: synced vorticity fluxes and vorticity damping fluxes
+    vfx, vfy = shalo.sync_vector_interfaces(*m_got[1], kind="cgrid")
+    del m_got, trio, m_args
+    dvfx, dvfy = delnflux(vort_x, sgrid, min(2, scfg.nord), scfg.vtdm4, sgrid.da_min)
+    dvfx, dvfy = shalo.sync_vector_interfaces(dvfx, dvfy, kind="cgrid")
+    divg = chalf.cg.divg_d
+    tail_cases = [
+        ("bench", scfg, (dvfx, dvfy)),
+        ("nord 1, no band, heat or vorticity damping",
+         d_sw_ops.DSWConfig(nord=1, d4_bg=0.16, dddmp=0.0, d_con=0.0, vtdm4=0.0,
+                            edge_damp_band=False), (None, None)),
+    ]
+    for label, tcfg, (dx_, dy_) in tail_cases:
+        t_args = (chalf.u_y, chalf.v_x, ut, vt, divg, vort, vfx, vfy, dx_, dy_, sgrid, dt, tcfg)
+        t_got = dtk.d_sw_tail_cuda(*t_args)
+        t_ref = d_sw_ops.d_sw_tail_plain(*t_args)
+        torch.cuda.synchronize()
+        t_err = {}
+        for nm, a, b in zip(("u_new", "v_new", "heat"), t_got, t_ref):
+            if b is None:
+                if a is not None:
+                    raise AssertionError(f"d_sw tail ({label}): {nm} returned, none expected")
+                continue
+            t_err[nm] = check_close(f"d_sw tail ({label}) {nm} (compute domain)", ring(a, 3),
+                                    ring(b, 3), 4 * ulp * float(ring(b, 3).abs().max()))
+            log_identical(f"d_sw tail ({label}) {nm}, whole plane", a, b)
+        if tcfg is scfg:  # the main path's call
+            ms = time_ms(lambda: dtk.d_sw_tail_cuda(*t_args), 20)
+            plain_ms = time_ms(lambda: d_sw_ops.d_sw_tail_plain(*t_args), 3)
+            t_consts = [getattr(sgrid, c) for c in dtk.CONSTS if not c.startswith("wg")]
+            t_consts += list(lap_corner_weights(sgrid)) + [getattr(sgrid, c) for c in dtk.EDGES]
+            b_ms, b_by = bound(nbytes(*t_args[:10], *t_consts, *t_got),
+                               D_SW_TAIL_OPS_PER_POINT * vort.numel(), f32)
+            # max_abs_err of the line: the momentum update's
+            results["d_sw_tail"] = dict(max_abs_err=max(t_err["u_new"], t_err["v_new"]), ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=None)
+            log(f"[time] d_sw tail {tuple(vort.shape)} f32 nord {tcfg.nord}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del t_got, t_ref, t_args
+    del vfx, vfy, dvfx, dvfy, vort, vort_x, vort_p, ut, vt, divg, tail_cases
+
+    # the flux-form height update, as updatedz_d calls it: interface-averaged
+    # fluxes and the hord-5 fluxes of the heights over K+1 interfaces
+    crx_i, cry_i, xfx_i, yfx_i = (nh_ops._to_iface(f) for f in (crx, cry, xfx, yfx))
+    del crx, cry, xfx, yfx, mfx, mfy
+    fl = fvtp2d_best(chalf.zh_x, chalf.zh_y, crx_i, cry_i, xfx_i, yfx_i, sgrid.area, 5)
+    f_args = (chalf.zh_x, fl.fx, fl.fy, xfx_i, yfx_i, sgrid.area)
+    f_got = uzk.flux_height_update_cuda(*f_args)
+    f_ref = nh_ops.flux_height_update_plain(*f_args)
+    torch.cuda.synchronize()
+    f_err = check_close("flux_height_update zh (compute domain)", ring(f_got, 3), ring(f_ref, 3),
+                        4 * ulp * float(ring(f_ref, 3).abs().max()))
+    log_identical("flux_height_update zh, whole plane", f_got, f_ref)
+    ms = time_ms(lambda: uzk.flux_height_update_cuda(*f_args), 20)
+    plain_ms = time_ms(lambda: nh_ops.flux_height_update_plain(*f_args), 3)
+    b_ms, b_by = bound(nbytes(*f_args, f_got), FLUX_HEIGHT_OPS_PER_POINT * f_got.numel(), f32)
+    results["flux_height_update"] = dict(max_abs_err=f_err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[time] flux_height_update {tuple(f_got.shape)} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del f_got, f_ref, f_args, fl, crx_i, cry_i, xfx_i, yfx_i, chalf, scase, sgrid, shalo, st
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------
     # 3. small-input reference: C24 f64, card kernels vs CPU plain path
     # ------------------------------------------------------------------
@@ -786,12 +979,53 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                [t.cpu() for t in s_card], (w_n, dz_n, pp_n), SIM1_F64_REL_TOL)
     del a, b, a_half, b_half, b_case, s_cpu, s_card, w_n, dz_n, pp_n
 
+    # the substep up to the vertical solve, both configurations. Three
+    # outputs of the vertical solve are differences of pressures near 1e5 Pa
+    # (the card's log differs from the CPU's by an ulp): pp is held to 1e-12
+    # of the largest interface pressure, w to that pressure error times
+    # dt / dm of the lightest layer, delz to the w error times dt; ws is the
+    # difference of two heights over dt
+    def substep_outputs(dhalf):
+        names = ["u", "v", "delp", "pt", "mfx", "mfy", "crx", "cry", "xfx", "yfx", "heat"]
+        if dhalf.w is not None:
+            names += ["w", "delz", "pp", "pk", "pkz", "gz", "ws"]
+        outs = {nm: getattr(dhalf, nm) for nm in names}
+        outs.update(ds_delp=dhalf.ds.delp, ds_pt=dhalf.ds.pt)
+        return outs
+
+    for hydrostatic in (True, False):
+        label = f"{'' if hydrostatic else 'non'}hydrostatic substep up to the vertical solve"
+        small = dict(n=24, npz=8, dtype=torch.float64, hydrostatic=hydrostatic)
+        a = substep_outputs(sdemo.step(sdemo.build_case(device=dev, **small))[1])
+        b_case = sdemo.build_case(device="cpu", **small)
+        b = substep_outputs(sdemo.step(b_case)[1])
+        pe_max = float(b_case.grid.ptop + b_case.state.delp[i].sum(dim=1).max())
+        p_err = pe_max * sdemo.DT / (float(b_case.state.delp[i].min()) / constants.GRAV)
+        scales = {"pp": pe_max, "w": p_err, "delz": p_err * sdemo.DT}
+        rel, worst = 0.0, ""
+        for nm in a:
+            x, y = ring(a[nm].cpu(), 3), ring(b[nm], 3)
+            scale = max(float(y.abs().max()), scales.get(nm, 0.0))
+            if nm == "ws":
+                scale = float(b["gz"].abs().max()) / constants.GRAV / sdemo.DT
+            r = float((x - y).abs().max()) / scale
+            if r > rel:
+                rel, worst = r, nm
+        log(f"[check] C24 npz=8 f64 {label}, card kernels vs CPU plain path: max diff "
+            f"{rel:.3e} of each output's scale (largest on {worst or 'none'})")
+        if not rel <= 1e-12:
+            raise AssertionError(f"C24 f64 {label} departs from the CPU reference: "
+                                 f"{rel} on {worst}")
+    del a, b, b_case
+
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
     # ------------------------------------------------------------------
     counters = {"halo": hk.LAUNCHES, "fvtp2d": fk.LAUNCHES, "fvtp2d_tracer": fk.LAUNCHES,
                 "d2a2c": d2k.LAUNCHES, "c_sw_tail": ck.LAUNCHES, "hydro": hyk.LAUNCHES,
-                "heights": uzk.LAUNCHES, "updatedz_c": uzk.LAUNCHES, "sim1": s1k.LAUNCHES}
+                "heights": uzk.LAUNCHES, "updatedz_c": uzk.LAUNCHES, "sim1": s1k.LAUNCHES,
+                "fvtp2d_multi": fk.LAUNCHES, "d_sw_tail": dtk.LAUNCHES,
+                "flux_height_update": uzk.LAUNCHES}
 
     def zero_counters():
         for c in counters.values():
@@ -913,6 +1147,67 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     if failures:
         raise AssertionError("nonhydrostatic C-grid slice checks failed: " + "; ".join(failures))
 
+    # --- one acoustic substep as far as it is ported, in the dycore
+    #     benchmark's configuration: the C-grid half, d_sw, the heating,
+    #     updatedz_d and riem_solver3, through the demo's entry point
+    s_repeats = 8
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sout = sdemo.run(n=n, npz=npz, repeats=s_repeats, device=dev, dtype=torch.float32)
+    s_launches = {k: c[k] for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_steps = sdemo.WARM_REPEATS + s_repeats
+    dcfg = sout["case"].config.d_sw
+    log(f"[substep] C{n} npz={npz} f32 dt={sdemo.DT:.4f} s nord={dcfg.nord} d4_bg={dcfg.d4_bg} "
+        f"dddmp={dcfg.dddmp} vtdm4={dcfg.vtdm4} d_con={dcfg.d_con}, {s_repeats} substeps after "
+        f"{sdemo.WARM_REPEATS} warm ones: mean {sout['ms_per_substep']:.3f} ms/substep, median "
+        f"{sout['ms_median']:.3f} (ms: {', '.join(f'{t:.3f}' for t in sout['step_ms'])}), device "
+        f"allocations per repeat {sout['device_allocs']}, peak memory {peak_gb:.2f} GB")
+    log(f"[substep] finite {sout['finite']}, delp min {sout['delp_min']:.4f}, drift across d_sw "
+        f"of mass {sout['mass_drift']:.3e}, of pt mass {sout['theta_drift']:.3e}, of w mass "
+        f"{sout['w_drift']:.3e} (allowed {DRIFT_MAX}); pt in [{sout['pt_min']:.4f}, "
+        f"{sout['pt_max']:.4f}], max|u| {sout['u_max']:.3f}, max|heat| {sout['heat_max']:.4e} "
+        f"J/kg, max|dT| {sout['dT_max']:.4e} K (cap {sout['dT_cap']:.4e})")
+    log(f"[substep] delz max {sout['delz_max']:.4f} m, bottom interface off phis/g by "
+        f"{sout['zs_err']:.3e} m, max|pp|/pe {sout['pp_rel_max']:.4e} (allowed {PP_REL_MAX}), "
+        f"max|ws| {sout['ws_max']:.4e} m/s (allowed {WS_MAX}), max|w| {sout['w_max']:.4e} m/s")
+    log(f"[substep] launches in {n_steps} substeps: {s_launches}")
+    failures = []
+    if not sout["finite"]:
+        failures.append("non-finite fields")
+    if not sout["delp_min"] > 0:
+        failures.append(f"delp min {sout['delp_min']}")
+    for k in ("mass_drift", "theta_drift", "w_drift"):
+        if not sout[k] <= DRIFT_MAX:
+            failures.append(f"{k} {sout[k]}")
+    if not 0 < sout["dT_max"] <= sout["dT_cap"] + 2 * ulp * sout["pt_max"]:
+        failures.append(f"heating increment {sout['dT_max']} beyond its cap {sout['dT_cap']}")
+    if not sout["delz_max"] < 0:
+        failures.append(f"delz max {sout['delz_max']}")
+    zs_max = float(sout["case"].state.phis.abs().max()) / constants.GRAV
+    if not sout["zs_err"] <= 4 * ulp * zs_max:
+        failures.append(f"bottom interface off the surface by {sout['zs_err']} m")
+    if not sout["pp_rel_max"] <= PP_REL_MAX:
+        failures.append(f"max|pp|/pe {sout['pp_rel_max']}")
+    if not sout["ws_max"] <= WS_MAX:
+        failures.append(f"max|ws| {sout['ws_max']}")
+    for k, per_step in LAUNCHES_PER_SUBSTEP.items():
+        want = per_step * n_steps + SUBSTEP_SETUP_LAUNCHES.get(k, 0)
+        if s_launches[k] != want:
+            failures.append(f"kernel {k} launched {s_launches[k]} times, expected {want}")
+    for k in ("fvtp2d_tracer",):
+        if s_launches[k] != 0:
+            failures.append(f"kernel {k} launched on the substep")
+    # the unperturbed (steady) state, after the counts were read
+    bal = sdemo.steady_state_residual(n, npz, device=dev, dtype=torch.float32)
+    log(f"[substep] unperturbed state: rms D-grid wind tendency of d_sw {bal['tendency_rms']:.4e} "
+        f"m/s^2, rms C-grid pressure-gradient term {bal['pgf_rms']:.4e} m/s^2, ratio "
+        f"{bal['ratio']:.4f} (allowed {D_SW_BALANCE_RANGE})")
+    if not D_SW_BALANCE_RANGE[0] <= bal["ratio"] <= D_SW_BALANCE_RANGE[1]:
+        failures.append(f"D-grid balance ratio {bal['ratio']}")
+    if failures:
+        raise AssertionError("substep checks failed: " + "; ".join(failures))
+
     # ------------------------------------------------------------------
     # 5. where the time goes: two more steps under the profiler (after the
     #    launch counts were read), device time by kernel
@@ -927,6 +1222,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                   cout["ms_median"])
     profile_steps("nonhydrostatic C-grid half step", lambda: cdemo.step(nout["case"]),
                   nout["ms_median"])
+    profile_steps("substep up to the vertical solve", lambda: sdemo.step(sout["case"]),
+                  sout["ms_median"], top=20)
 
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
@@ -938,12 +1235,17 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         "heights": ("pace_tpu_torch/csrc/updatedz.cu", "pace_tpu/ops/updatedz_pallas.py:52"),
         "updatedz_c": ("pace_tpu_torch/csrc/updatedz.cu", "pace_tpu/ops/updatedz_pallas.py:129"),
         "sim1": ("pace_tpu_torch/csrc/sim1.cu", "pace_tpu/ops/sim1_pallas.py:29"),
+        "fvtp2d_multi": ("pace_tpu_torch/csrc/fvtp2d.cu", "pace_tpu/ops/fvtp2d_pallas.py:295"),
+        "d_sw_tail": ("pace_tpu_torch/csrc/d_sw_tail.cu", "pace_tpu/ops/d_sw_tail_pallas.py:163"),
+        "flux_height_update": ("pace_tpu_torch/csrc/updatedz.cu",
+                               "pace_tpu/ops/updatedz_pallas.py:235"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
         by_path = {"tracer_advection": launches[name], "cgrid_half_step": c_launches[name],
-                   "nh_cgrid_half_step": n_launches[name]}
+                   "nh_cgrid_half_step": n_launches[name],
+                   "acoustic_substep": s_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

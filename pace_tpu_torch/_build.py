@@ -29,6 +29,7 @@ SOURCES = {
     "fvtp2d": "fvtp2d.cu",
     "d2a2c": "d2a2c.cu",
     "c_sw_tail": "c_sw_tail.cu",
+    "d_sw_tail": "d_sw_tail.cu",
     "hydro": "hydro.cu",
     "updatedz": "updatedz.cu",
     "sim1": "sim1.cu",

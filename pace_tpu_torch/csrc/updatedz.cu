@@ -1,4 +1,4 @@
-// Interface heights of the nonhydrostatic C-grid half step: two kernels.
+// Interface heights of the nonhydrostatic acoustic substep: three kernels.
 //
 // heights_kernel replaces pace_tpu/ops/updatedz_pallas.py `_heights_kernel`
 // (pallas_call at :90, entry heights_from_delz_pallas :67): from layer
@@ -31,6 +31,20 @@
 // previous layer's four face fluxes in registers, so every layer flux is read
 // once per face. Neighbouring heights come through L1 (each value is read by
 // three threads of the tile); nothing is staged in shared memory.
+
+//
+// flux_height_update_kernel replaces `_flux_update_kernel` (pallas_call at
+// :281, entry flux_height_update_pallas :253), the tail of updatedz_d: from
+// the 2-D PPM fluxes fx (S, K+1, Y, X+1), fy (S, K+1, Y+1, X) of the heights
+// and the interface-averaged area fluxes xfx_i, yfx_i of the same shapes
+//   zh_new = (zh area + (fx - fx[+1]) + (fy - fy[+1]))
+//            / (area + (xfx_i - xfx_i[+1]) + (yfx_i - yfx_i[+1]))
+// summed left to right as ops/nonhydro.py flux_height_update_plain does,
+// with one IEEE division, so the two are bit-identical.
+// Bound: bytes (five fields of K+1 levels read, one written, ~0.45 GB,
+// ~0.135 ms for a C192 npz=79 f32 call; 10 operations per point). Design:
+// one thread per point and interface, x fastest; the east and north faces
+// are the next thread's west and south faces and come through L1.
 
 #include <cuda_runtime.h>
 
@@ -122,6 +136,37 @@ __global__ void __launch_bounds__(kTileX* kTileY) updatedz_c_kernel(
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kTileX* kTileY) flux_height_update_kernel(
+    const T* __restrict__ zh, const T* __restrict__ fx, const T* __restrict__ fy,
+    const T* __restrict__ xfx, const T* __restrict__ yfx,
+    const T* __restrict__ area, T* __restrict__ out, int K1, int Y, int X) {
+  const int x = blockIdx.x * kTileX + threadIdx.x;
+  const int y = blockIdx.y * kTileY + threadIdx.y;
+  if (x >= X || y >= Y) return;
+  const int s = blockIdx.z / K1;
+  const long long lev = blockIdx.z;  // s * K1 + interface
+  const long long c = lev * Y * X + (long long)y * X + x;
+  const long long w = lev * Y * (X + 1) + (long long)y * (X + 1) + x;  // west face
+  const long long so = lev * (Y + 1) * X + (long long)y * X + x;       // south face
+  const T a = area[(long long)s * Y * X + (long long)y * X + x];
+  const T ra = (a + (xfx[w] - xfx[w + 1])) + (yfx[so] - yfx[so + X]);
+  out[c] = ((zh[c] * a + (fx[w] - fx[w + 1])) + (fy[so] - fy[so + X])) / ra;
+}
+
+template <typename T>
+int launch_flux_height_update(const void* zh, const void* fx, const void* fy,
+                              const void* xfx, const void* yfx,
+                              const void* area, void* out, int S, int K1, int Y,
+                              int X, void* stream) {
+  const dim3 block(kTileX, kTileY);
+  const dim3 grid((X + kTileX - 1) / kTileX, (Y + kTileY - 1) / kTileY, S * K1);
+  flux_height_update_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const T*)zh, (const T*)fx, (const T*)fy, (const T*)xfx, (const T*)yfx,
+      (const T*)area, (T*)out, K1, Y, X);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_heights(const void* delz, const void* phis, double grav, void* zh,
                    int S, int K, int P, void* stream) {
   const long long cols = (long long)S * P;
@@ -172,4 +217,24 @@ extern "C" int pace_updatedz_c_f64(const void* zh_x, const void* zh_y,
                                    void* stream) {
   return launch_updatedz_c<double>(zh_x, zh_y, xfx, yfx, area, dt2, zh_out, ws,
                                    S, K, Y, X, stream);
+}
+
+// zh, out (S, K1, Y, X); fx, xfx (S, K1, Y, X+1); fy, yfx (S, K1, Y+1, X);
+// area (S, Y, X); K1 = K + 1 interfaces.
+extern "C" int pace_flux_height_update_f32(const void* zh, const void* fx,
+                                           const void* fy, const void* xfx,
+                                           const void* yfx, const void* area,
+                                           void* out, int S, int K1, int Y,
+                                           int X, void* stream) {
+  return launch_flux_height_update<float>(zh, fx, fy, xfx, yfx, area, out, S, K1,
+                                          Y, X, stream);
+}
+
+extern "C" int pace_flux_height_update_f64(const void* zh, const void* fx,
+                                           const void* fy, const void* xfx,
+                                           const void* yfx, const void* area,
+                                           void* out, int S, int K1, int Y,
+                                           int X, void* stream) {
+  return launch_flux_height_update<double>(zh, fx, fy, xfx, yfx, area, out, S,
+                                           K1, Y, X, stream);
 }

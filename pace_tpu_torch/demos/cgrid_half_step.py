@@ -154,6 +154,31 @@ def steady_state_residual(n: int = 48, npz: int = 8, device="cuda",
     return {"tendency_rms": tend, "pgf_rms": pgf, "ratio": tend / pgf}
 
 
+def timed_repeats(step_fn, repeats: int, dev: torch.device, warm: int = 0):
+    """Call ``step_fn`` ``warm`` untimed and ``repeats`` timed times, each
+    ended by a device synchronise. Returns the last result, the wall ms of
+    each timed repeat and, on a card, the number of device allocations
+    (``cudaMalloc`` calls of PyTorch's caching allocator) each one made."""
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def n_device_allocs():
+        return torch.cuda.memory_stats(dev).get("num_device_alloc", 0) if on_card else 0
+
+    step_ms, device_allocs = [], []
+    result = None
+    for r in range(warm + repeats):
+        sync()
+        a0 = n_device_allocs()
+        t0 = time.perf_counter()
+        result = step_fn()
+        sync()
+        if r >= warm:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            device_allocs.append(n_device_allocs() - a0)
+    return result, step_ms, device_allocs
+
+
 def run(n: int = 48, npz: int = 8, repeats: int = 3, device="cuda",
         dtype=torch.float32, hydrostatic: bool = True) -> dict:
     """Build the case and take ``repeats`` half steps from its state.
@@ -163,23 +188,8 @@ def run(n: int = 48, npz: int = 8, repeats: int = 3, device="cuda",
     of PyTorch's caching allocator) each repeat made, and
     :func:`diagnostics`."""
     case = build_case(n, npz, device, dtype, hydrostatic=hydrostatic)
-    dev = case.state.u.device
-    on_card = dev.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-
-    def n_device_allocs():
-        return torch.cuda.memory_stats(dev).get("num_device_alloc", 0) if on_card else 0
-
-    step_ms, device_allocs = [], []
-    half = None
-    for _ in range(repeats):
-        sync()
-        a0 = n_device_allocs()
-        t0 = time.perf_counter()
-        half = step(case)
-        sync()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        device_allocs.append(n_device_allocs() - a0)
+    half, step_ms, device_allocs = timed_repeats(lambda: step(case), repeats,
+                                                 case.state.u.device)
     steady = step_ms[1:] or step_ms
     return {
         "case": case, "half": half, "step_ms": step_ms, "device_allocs": device_allocs,

@@ -1,12 +1,21 @@
-"""Acoustic substep, C-grid half.
+"""Acoustic substep: the C-grid half and the D-grid half up to the vertical
+solve.
 
-Port of the first half of ``pace_tpu.models.fv3.acoustics._one_substep``
-(reference role: ``pyFV3.stencils.dyn_core.AcousticDynamics``): the halo
-exchanges of the substep, the C-grid shallow-water half step ``c_sw``, the
-hydrostatic interface chain or, in the nonhydrostatic configuration, the
-interface-height update and the provisional vertical solve, and the C-grid
-pressure gradient. The D-grid half (``d_sw``, the D-grid pressure gradient)
-and the ``n_split`` loop are not ported yet.
+Port of ``pace_tpu.models.fv3.acoustics._one_substep`` (reference role:
+``pyFV3.stencils.dyn_core.AcousticDynamics``) in two functions.
+:func:`c_grid_half`: the halo exchanges of the substep, the C-grid
+shallow-water half step ``c_sw``, the hydrostatic interface chain or, in the
+nonhydrostatic configuration, the interface-height update and the provisional
+vertical solve, and the C-grid pressure gradient. :func:`d_grid_half`: the
+D-grid step ``d_sw``, the dissipation heating, the exchange of the new
+``delp, pt`` and, in the nonhydrostatic configuration, the advection of the
+interface heights (``updatedz_d``), the vertical solve (``riem_solver3``) and
+the halo refresh after it.
+
+Not ported yet: the D-grid pressure gradient (``nh_p_grad`` over ``a2b_ord4``,
+or the hydrostatic ``one_grad_p``), beta off-centering, ``ray_fast``, the
+final D-grid interface sync, ``_one_substep`` that strings the halves
+together, and the ``n_split`` loop ``acoustic_loop``.
 
 Corner-fold protocol (see pace_tpu_torch.parallel.topology): every sweep
 direction gets ghost data folded for that direction — u is y-swept (use
@@ -23,20 +32,27 @@ import torch
 
 from ... import constants
 from ...ops.c_sw import CGridState, c_sw
+from ...ops.d_sw import DSWConfig, DSWResult, d_sw
 from ...ops.folds import CornerPatch
 from ...ops.hydro_kernel import hydrostatic_interfaces_best
-from ...ops.nonhydro import heights_from_delz, riem_solver_c, updatedz_c
+from ...ops.nonhydro import (
+    heights_from_delz,
+    riem_solver3,
+    riem_solver_c,
+    updatedz_c,
+    updatedz_d,
+)
 from ...ops.pgrad import p_grad_c
 
 
 @dataclasses.dataclass(frozen=True)
 class AcousticConfig:
     """Acoustic-loop parameters (the fields and defaults of ``pace_tpu``'s
-    ``AcousticConfig``, less ``d_sw``, which arrives with the D-grid
-    solver)."""
+    ``AcousticConfig``)."""
 
     n_split: int = 1
     hydrostatic: bool = True
+    d_sw: DSWConfig = dataclasses.field(default_factory=DSWConfig)
     # nonhydrostatic params
     a_imp: float = 1.0
     p_fac: float = 0.05
@@ -99,8 +115,9 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
     temperature, ``dt2`` half the acoustic time step. ``w`` and ``delz`` are
     carried by the nonhydrostatic configuration only, which needs both.
     ``phis_folds`` is ``halo.update_scalar_folds(phis)``, constant over the
-    substeps; it is computed here when absent. ``_one_substep`` will call
-    this function once the D-grid half exists.
+    substeps; it is computed here when absent. :func:`d_grid_half` takes the
+    result; ``_one_substep`` will call both once the D-grid pressure
+    gradient exists.
     """
     hydro = config.hydrostatic
     if not hydro and (w is None or delz is None):
@@ -161,3 +178,115 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
         delp_x=delp_x, delp_y=CornerPatch(delp_p), pt_x=pt_x, pt_y=CornerPatch(pt_p),
         pkz_c=pkz_c, w_x=w_x, w_y=w_y, **nh,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class DGridHalf:
+    """What the D-grid half of a substep, up to the vertical solve, hands to
+    the D-grid pressure gradient and to the end of the substep."""
+
+    #: ``d_sw``'s own result: ``w, delp, pt`` as transported, before the
+    #: heating, the exchange and the vertical solve
+    ds: DSWResult
+    #: D-grid winds after ``d_sw``, interface-synced, before any pressure
+    #: gradient
+    u: torch.Tensor
+    v: torch.Tensor
+    #: the new ``delp, pt`` (``pt`` with the dissipation heating), exchanged
+    #: in the x fold
+    delp: torch.Tensor
+    pt: torch.Tensor
+    #: the substep's mass fluxes, Courant numbers and area fluxes, which the
+    #: acoustic loop accumulates for the tracer transport
+    mfx: torch.Tensor
+    mfy: torch.Tensor
+    crx: torch.Tensor
+    cry: torch.Tensor
+    xfx: torch.Tensor
+    yfx: torch.Tensor
+    #: KE dissipated by the damping this substep [J/kg], when tracked
+    heat: Optional[torch.Tensor] = None
+    #: nonhydrostatic only: ``w``, ``delz`` and the perturbation interface
+    #: pressure ``pp`` [Pa] after the vertical solve, ghosts refreshed;
+    #: interface ``pk`` and layer-mean ``pkz`` of the new ``delp, pt``; the
+    #: interface geopotential ``gz`` [m^2/s^2] of the solved ``delz``; and the
+    #: surface velocity ``ws`` [m/s] the advected heights imply
+    w: Optional[torch.Tensor] = None
+    delz: Optional[torch.Tensor] = None
+    pp: Optional[torch.Tensor] = None
+    pk: Optional[torch.Tensor] = None
+    pkz: Optional[torch.Tensor] = None
+    gz: Optional[torch.Tensor] = None
+    ws: Optional[torch.Tensor] = None
+
+
+def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
+                ptop: float, phis) -> DGridHalf:
+    """The D-grid half of one acoustic substep from the result of
+    :func:`c_grid_half`, up to and including the vertical solve.
+
+    ``d_sw`` advances ``u, v, delp, pt`` (and ``w``) over the full step
+    ``dt`` with the exchanged C-grid winds; the dissipated kinetic energy
+    heats ``pt`` (``d_con``, capped at ``delt_max * |dt|`` per substep); the
+    new ``delp, pt`` are exchanged. With ``hydrostatic=False`` the interface
+    heights that the C-grid half built are advected by the layer fluxes
+    (``updatedz_d``), the bottom interface is pinned back to the surface
+    (its displacement over ``dt`` is ``ws``), and ``riem_solver3`` solves for
+    ``w``, ``delz`` and ``pp``, whose ghosts are then refreshed. With
+    ``hydrostatic=True`` the function stops after the exchange and the
+    vertical fields of the result are ``None``.
+
+    The pressure gradient (``nh_p_grad`` / ``one_grad_p``), beta
+    off-centering, ``ray_fast`` and the final D-grid interface sync of the
+    substep are not applied yet: ``u, v`` of the result are the winds after
+    ``d_sw`` alone.
+    """
+    hydro = config.hydrostatic
+    if not hydro and (half.w_x is None or half.zh_x is None):
+        raise ValueError("nonhydrostatic mode requires the w and zh of a nonhydrostatic "
+                         "C-grid half")
+    cg = half.cg
+    # the D-grid step takes the exchanged w for both its w arguments
+    ds = d_sw(
+        half.u_y, half.v_x, half.w_x, half.delp_x, half.delp_y, half.pt_x, half.pt_y,
+        half.w_x, half.w_y, half.uc_x, half.vc_x, half.uc_y, half.vc_y, cg.divg_d,
+        grid, halo, dt, config.d_sw,
+    )
+    pt = ds.pt
+    if ds.heat is not None and config.d_sw.d_con > 0.0:
+        # dissipation heating: dT = d_con*heat/cv_air capped at
+        # +-delt_max*dt (a clamp against spurious hot spots at strong
+        # shear); pt is potential temperature, so divide by the mid-substep
+        # Exner function
+        d_t = (config.d_sw.d_con / constants.CV_AIR) * ds.heat
+        cap = config.delt_max * abs(dt)
+        pt = pt + torch.clamp(d_t, -cap, cap) / half.pkz_c
+    delp_h, pt_h = halo.update_scalars([ds.delp, pt], fold="x")
+    out = dict(ds=ds, u=ds.u, v=ds.v, delp=delp_h, pt=pt_h, mfx=ds.mfx, mfy=ds.mfy, crx=ds.crx,
+               cry=ds.cry, xfx=ds.xfx, yfx=ds.yfx, heat=ds.heat)
+    if hydro:
+        return DGridHalf(**out)
+
+    # advect the interface heights with the substep fluxes, derive the
+    # terrain-following surface w, then the implicit vertical solve; the
+    # heights were built by the C-grid half from the same delz and phis folds
+    phis_x, _phis_y = half.phis_folds
+    zh_adv = updatedz_d(half.zh_x, half.zh_y, ds.crx, ds.cry, ds.xfx, ds.yfx, grid, dt)
+    zs = half.zh_x[..., -1:, :, :]
+    ws = (zh_adv[..., -1:, :, :] - zs)[..., 0, :, :] / torch.tensor(
+        dt, dtype=zs.dtype, device=zs.device)
+    zh_adv = torch.cat([zh_adv[..., :-1, :, :], zs], dim=-3)
+    delz = zh_adv[..., 1:, :, :] - zh_adv[..., :-1, :, :]
+
+    _pe, _peln, pk_h, pkz_h, _gz = hydrostatic_interfaces_best(
+        delp_h, pt_h, phis, ptop, need=("pk", "pkz")
+    )
+    w, delz, pp = riem_solver3(
+        ds.w, delz, pt_h, delp_h, pkz_h, ws, dt, ptop, a_imp=config.a_imp, p_fac=config.p_fac
+    )
+    # the solver's halo columns used garbage ws (fluxes are only valid on
+    # the domain): refresh the ghosts with owner values
+    w, delz = halo.update_scalars([w, delz], fold="x")
+    pp = halo.update_scalar(pp, fold="x")
+    gz_if = heights_from_delz(delz, phis_x) * constants.GRAV
+    return DGridHalf(**out, w=w, delz=delz, pp=pp, pk=pk_h, pkz=pkz_h, gz=gz_if, ws=ws)

@@ -14,8 +14,9 @@ with corner ghosts along continued x index lines and ``qy`` along y (a full
 tensor or a :class:`~pace_tpu_torch.ops.folds.CornerPatch`). The inner
 y-sweep feeding the x-flux uses ``qy`` and vice versa.
 
-:func:`fvtp2d` is the plain PyTorch formulation; :func:`fvtp2d_best`
-launches the fused CUDA kernel for CUDA tensors (ops/fvtp2d_kernel.py).
+:func:`fvtp2d` is the plain PyTorch formulation; :func:`fvtp2d_best` and
+:func:`fvtp2d_multi_best` (several fields sharing the winds) launch the fused
+CUDA kernels for CUDA tensors (ops/fvtp2d_kernel.py).
 """
 
 from __future__ import annotations
@@ -88,6 +89,28 @@ def fvtp2d_best(
         fx, fy = fvtp2d_cuda(qx, qy, crx, cry, xfx, yfx, area, hord, mfx=mfx, mfy=mfy)
         return Fluxes2D(fx=fx, fy=fy)
     return fvtp2d(qx, qy, crx, cry, xfx, yfx, area, hord, mfx=mfx, mfy=mfy)
+
+
+def fvtp2d_multi_best(fields, crx, cry, xfx, yfx, area, mfx=None, mfy=None):
+    """Transport several fields that share the winds and fluxes.
+
+    ``fields``: sequence of ``(qx, qy, hord, use_mf)``; a field with
+    ``use_mf`` weights its interface values by ``mfx``/``mfy``, the others
+    by ``xfx``/``yfx``. CUDA tensors go through one launch of the fused
+    multi-field kernel, which stages ``crx/cry/xfx/yfx/area`` once for all
+    fields (d_sw's pt/vorticity/w triple); CPU tensors through the list of
+    single-field :func:`fvtp2d` calls. Returns a list of :class:`Fluxes2D`
+    in field order, each equal to the single-field call's.
+    """
+    from .folds import CornerPatch
+    from .fvtp2d_kernel import fvtp2d_multi_cuda, fvtp2d_multi_plain
+
+    tensors = [crx, cry, xfx, yfx, area, mfx, mfy]
+    for qx, qy, _hord, _use_mf in fields:
+        tensors += [qx, qy.data if isinstance(qy, CornerPatch) else qy]
+    multi = fvtp2d_multi_cuda if route(*tensors) == "kernel" else fvtp2d_multi_plain
+    outs = multi(fields, crx, cry, xfx, yfx, area, mfx=mfx, mfy=mfy)
+    return [Fluxes2D(fx=fx, fy=fy) for fx, fy in outs]
 
 
 def flux_divergence(fx, fy, rarea):

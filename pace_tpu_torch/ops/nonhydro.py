@@ -1,9 +1,10 @@
 """Nonhydrostatic vertical dynamics: the semi-implicit Riemann solvers and
-the interface-height chain of the C-grid half step.
+the interface-height chains of both halves of the acoustic substep.
 
 Port of ``pace_tpu.ops.nonhydro`` (reference roles:
-``pyFV3.stencils.{riem_solver_c, riem_solver3, sim1_solver, updatedzc}``),
-less ``updatedz_d`` and ``nh_p_grad``, which belong to the D-grid half.
+``pyFV3.stencils.{riem_solver_c, riem_solver3, sim1_solver, updatedzc,
+updatedzd}``), less ``nh_p_grad``, which belongs to the D-grid pressure
+gradient.
 
 Formulation (backward-Euler limit a_imp=1):
 
@@ -16,11 +17,13 @@ Formulation (backward-Euler limit a_imp=1):
 - Layer w and delz follow from the solved interface field; the perturbation
   interface pressure feeds the pressure-gradient force.
 
-Three operators have a CUDA kernel: :func:`heights_from_delz` and
-:func:`updatedz_c` (``ops/updatedz_kernel.py``) and the ``a_imp == 1`` solve
+Four operators have a CUDA kernel: :func:`heights_from_delz`,
+:func:`updatedz_c` and :func:`flux_height_update`, the tail of
+:func:`updatedz_d` (``ops/updatedz_kernel.py``), and the ``a_imp == 1`` solve
 behind :func:`sim1_solver_best` (``ops/sim1_kernel.py``). Their plain PyTorch
-versions are :func:`heights_from_delz_plain`, :func:`updatedz_c_plain` and
-:func:`sim1_solver` + :func:`_p_fac_floor`; the choice follows
+versions are :func:`heights_from_delz_plain`, :func:`updatedz_c_plain`,
+:func:`flux_height_update_plain` and :func:`sim1_solver` +
+:func:`_p_fac_floor`; the choice follows
 ``ops/_dispatch.py`` (CUDA tensors take the kernel, CPU tensors the plain
 version).
 
@@ -47,7 +50,8 @@ from .stencil_utils import (
     y_cell_to_right_iface,
     y_iface_diff,
 )
-from .updatedz_kernel import heights_from_delz_cuda, updatedz_c_cuda
+from .fvtp2d import fvtp2d_best
+from .updatedz_kernel import flux_height_update_cuda, heights_from_delz_cuda, updatedz_c_cuda
 
 GAMMA = 1.0 / (1.0 - constants.KAPPA)  # cp/cv
 
@@ -312,3 +316,35 @@ def updatedz_c(zh_x, zh_y, xfx_l, yfx_l, grid, dt2: float):
     if route(zh_x, zh_y, xfx_l, yfx_l, grid.area) == "kernel":
         return updatedz_c_cuda(zh_x, zh_y, xfx_l, yfx_l, grid.area, dt2)
     return updatedz_c_plain(zh_x, zh_y, xfx_l, yfx_l, grid.area, dt2)
+
+
+def flux_height_update_plain(zh, fx, fy, xfx_i, yfx_i, area):
+    """Plain PyTorch version of :func:`flux_height_update`."""
+    area_b = bcast_k(area, zh)
+    ra = area_b + x_iface_diff(xfx_i) + y_iface_diff(yfx_i)
+    return (zh * area_b + x_iface_diff(fx) + y_iface_diff(fy)) / ra
+
+
+def flux_height_update(zh, fx, fy, xfx_i, yfx_i, area):
+    """Flux-form update of the interface heights, ``(zh area + flux
+    divergence) / (area + area-flux divergence)``; all operands
+    interface-registered in k. CUDA tensors take the kernel."""
+    if route(zh, fx, fy, xfx_i, yfx_i, area) == "kernel":
+        return flux_height_update_cuda(zh, fx, fy, xfx_i, yfx_i, area)
+    return flux_height_update_plain(zh, fx, fy, xfx_i, yfx_i, area)
+
+
+def updatedz_d(zh_x, zh_y, crx, cry, xfx, yfx, grid, dt: float, hord: int = 5):
+    """Horizontal advection of interface heights by the layer winds
+    (reference updatedzd). zh: (.., K+1, Y, X) with corner ghosts in x/y fold;
+    courant/area fluxes are LAYER quantities, averaged to the interfaces from
+    the adjacent layers (top/bottom use the nearest layer).
+
+    Uses the same 2-D PPM transport as the mass fluxes so height surfaces and
+    pressure surfaces move consistently (a first-order upwind here leaves
+    O(upwind-diffusion) height errors that the implicit vertical solver turns
+    into spurious w). Returns the advected zh; the caller enforces the
+    surface BC and derives ws. (``dt`` is not used: the fluxes carry it.)"""
+    crx_i, cry_i, xfx_i, yfx_i = (_to_iface(f) for f in (crx, cry, xfx, yfx))
+    fl = fvtp2d_best(zh_x, zh_y, crx_i, cry_i, xfx_i, yfx_i, grid.area, hord)
+    return flux_height_update(zh_x, fl.fx, fl.fy, xfx_i, yfx_i, grid.area)

@@ -58,5 +58,9 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.models.fv3.state",
         "pace_tpu_torch.models.fv3.acoustics",
         "pace_tpu_torch.demos.cgrid_half_step",
+        "pace_tpu_torch.ops.delnflux",
+        "pace_tpu_torch.ops.d_sw",
+        "pace_tpu_torch.ops.d_sw_tail_kernel",
+        "pace_tpu_torch.demos.acoustic_substep",
     }
     assert expected <= set(result["modules"])
