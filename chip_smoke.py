@@ -23,11 +23,21 @@ Phases (any failure raises and exits non-zero):
    within 4 ulp of each output's maximum, and the vertical solve (sim1) on
    the columns a consumer reads, within 4 ulp of each output's maximum on
    the compute domain in float32 and within ``SIM1_F64_REL_TOL`` of it in
-   float64 (see ``check_sim1``);
+   float64 (see ``check_sim1``). D-grid half, on the fields of one substep:
+   the multi-field transport, the D-grid tail, the flux-form height update
+   and the nonhydrostatic pressure gradient (``nh_p_grad``) within 4 ulp of
+   each output's maximum on the compute domain. The vertical remap, on the
+   pressure columns after one acoustic loop of the dycore step: one field
+   with kord -9 and 9, the tracer block and the u-point winds with kord 9,
+   every kord class at a small size in float32 and float64, within 4 ulp of
+   each output's maximum, with the column integral conserved;
 3. small-input references in float64, kernel path on the card against the
    plain path on the CPU: the tracer-advection demo at C24 and the C-grid
    half step at C24 in both configurations, within 1e-12, and the three
-   outputs of the vertical solve on that half step's fields;
+   outputs of the vertical solve on that half step's fields; the substep up
+   to the vertical solve; one whole dycore step at C24 npz=8 (k_split=2,
+   n_split=2) within ``STEP_F64_REL_TOL`` of each field's scale
+   (``step_f64_scales``);
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
@@ -45,7 +55,11 @@ Phases (any failure raises and exits non-zero):
    counts per substep, conservation of mass, heat and w across ``d_sw``, the
    heating cap, negative thicknesses, the bottom interface on the surface,
    bounds on the perturbation pressure and the surface velocity, and the
-   size of the D-grid wind tendency of the unperturbed state);
+   size of the D-grid wind tendency of the unperturbed state); and whole
+   dycore steps (``demos/dycore_step.run``) of ``bench.py``'s configuration,
+   1 warm and 2 timed steps (the exact launch counts of all fourteen kernels
+   per step, finite fields, ``delp > 0``, ``delz < 0``, dry and tracer mass,
+   the range of ``ps``, wind bounds);
 5. where the time goes: two more steps of each demo under
    ``torch.profiler``, device time by kernel.
 
@@ -128,6 +142,21 @@ SIM1_OPS_PER_POINT = 61
 D_SW_TAIL_OPS_PER_POINT = 96
 FLUX_HEIGHT_OPS_PER_POINT = 10
 
+# Operations per layer point of the last two kernels:
+#   nh_p_grad, per corner and level: four a2b interpolations (x and y
+#          4-point stencils, 10 each) 40; per D-grid edge, the hydrostatic
+#          pair (term 7, layer thicknesses 3, dt rdl 1, product and
+#          quotient 2) and the perturbation pair (term 7, the corner delp
+#          sum 1, product and quotient 2) and the two additions to the wind,
+#          25, times the two edges = 90;
+#   remap, per layer and column: limited or clamped interface value 12, bl
+#          and br 2, the selective constraint (both limiters and the noise
+#          mask) 30, the coefficients 4, the running integral 3, the
+#          location (11 compares and sums) 22, the cubic and its integral 16,
+#          the difference and quotient 3 = 92.
+PGRAD_OPS_PER_POINT = 90
+REMAP_OPS_PER_POINT = 92
+
 #: acceptance threshold of the balance check: rms C-grid wind tendency of the
 #: unperturbed baroclinic state over rms pressure-gradient term. The demo on
 #: the CPU in float64, where it equals pace_tpu to 1e-12, gives 0.0517 at C24
@@ -179,6 +208,27 @@ LAUNCHES_PER_SUBSTEP = {"d2a2c": 1, "c_sw_tail": 1, "updatedz_c": 1, "heights": 
                         "flux_height_update": 1, "halo": 44}
 #: launches the demo makes once, when it builds its case: phis in both folds
 SUBSTEP_SETUP_LAUNCHES = {"halo": 2}
+
+#: kernel launches of one dycore step (``demos/dycore_step.run``): per
+#: acoustic substep (the substep above, plus the D-grid pressure gradient
+#: and the final sync of the winds), per outer step (the acoustic loop's
+#: exchange of phis, the remap of pt, w, delz, the tracer block, u and v),
+#: per tracer sub-cycle (the tracer fluxes and their two exchanges) and
+#: once per step (the diagnostics' wind exchange and d2a2c)
+STEP_LAUNCHES_PER_SUBSTEP = dict(LAUNCHES_PER_SUBSTEP, pgrad=1, halo=46)
+STEP_LAUNCHES_PER_OUTER = {"halo": 2, "remap": 6}
+STEP_LAUNCHES_PER_SUBCYCLE = {"fvtp2d_tracer": 1, "halo": 4}
+STEP_LAUNCHES_PER_STEP = {"halo": 2, "d2a2c": 1}
+
+#: gates of the dycore step from the baroclinic-wave state (``[step]``):
+#: relative change of sum(delp area) and of the tracer mass sum(q delp area)
+#: over a step (both conserved by the transport and the remap up to
+#: rounding; float32 at C24 on the CPU: see PERF.md), the range of the
+#: surface pressure [Pa] and the wind bounds [m/s]
+STEP_MASS_DRIFT_MAX = 1e-5
+PS_RANGE = (9.0e4, 1.06e5)
+UV_MAX = 120.0
+W_MAX = 10.0
 
 
 def log(*a):
@@ -282,19 +332,48 @@ def check_sim1(label, got, ref, rel_tol):
     return errs
 
 
-def profile_steps(label, step_fn, wall_ms, top=10):
-    """Two calls of ``step_fn`` under torch.profiler: device time by kernel,
-    the ``top`` largest."""
+#: fields of the dycore step held card against CPU at C24 f64, within
+#: STEP_F64_REL_TOL of each field's scale: its maximum, as the earlier slices
+#: held theirs, or, where the ulp-level log difference of the vertical solve
+#: propagates, the larger scale of step_f64_scales (see PERF.md)
+STEP_FIELDS = ("u", "v", "w", "delz", "delp", "pt", "q", "ps", "pe", "peln", "pk", "pkz",
+               "omga", "ua", "va", "uc", "vc", "mfxd", "mfyd", "cxd", "cyd", "diss_estd")
+STEP_F64_REL_TOL = 1e-12
+
+
+def seeded_tracers(q, seed):
+    """A tracer block of ``q``'s shape, dtype and device: uniform in [1e-4,
+    1.1e-3] from ``seed``."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    return 1e-3 * (0.1 + torch.rand(q.shape, generator=gen, device=q.device, dtype=q.dtype))
+
+
+def step_f64_scales(case, constants):
+    """Scales of the outputs of the vertical solve: ``w`` is a difference of
+    pressures near 1e5 Pa times dt over the lightest layer's mass, ``delz``
+    that times dt, ``omga`` the largest interface pressure over the outer
+    step (it is a difference of pressures over that time)."""
+    st, grid, cfg = case.state, case.grid, case.core.config
+    i = (..., slice(grid.n_halo, -grid.n_halo), slice(grid.n_halo, -grid.n_halo))
+    pe_max = float(grid.ptop + st.delp[i].sum(dim=1).max())
+    dt = case.core.timestep / (cfg.k_split * cfg.n_split)
+    p_err = pe_max * dt / (float(st.delp[i].min()) / constants.GRAV)
+    return {"w": p_err, "delz": p_err * dt, "omga": pe_max * cfg.k_split / case.core.timestep}
+
+
+def profile_steps(label, step_fn, wall_ms, top=10, calls=2):
+    """``calls`` calls of ``step_fn`` under torch.profiler: device time by
+    kernel per call, the ``top`` largest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
+        for _ in range(calls):
             step_fn()
         torch.cuda.synchronize()
     # device-side kernel events only: the host-side operator events carry
     # their kernels' time too
-    rows = [(e.key, e.self_device_time_total / 2e3, e.count // 2)
+    rows = [(e.key, e.self_device_time_total / (1e3 * calls), e.count // calls)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
@@ -325,7 +404,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     from pace_tpu_torch import _build, constants
     from pace_tpu_torch.demos import acoustic_substep as sdemo
     from pace_tpu_torch.demos import cgrid_half_step as cdemo
+    from pace_tpu_torch.demos import dycore_step as ddemo
     from pace_tpu_torch.demos import tracer_advection as demo
+    from pace_tpu_torch.models.fv3.acoustics import acoustic_loop
     from pace_tpu_torch.ops import c_sw as c_sw_ops
     from pace_tpu_torch.ops import c_sw_tail_kernel as ck
     from pace_tpu_torch.ops import d2a2c as d2a2c_ops
@@ -336,6 +417,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     from pace_tpu_torch.ops import hydro_kernel as hyk
     from pace_tpu_torch.ops import nonhydro as nh_ops
     from pace_tpu_torch.ops import pgrad as pgrad_ops
+    from pace_tpu_torch.ops import pgrad_kernel as pgk
+    from pace_tpu_torch.ops import remap_kernel as rmk
+    from pace_tpu_torch.ops import remapping as rm_ops
     from pace_tpu_torch.ops import sim1_kernel as s1k
     from pace_tpu_torch.ops import updatedz_kernel as uzk
     from pace_tpu_torch.ops.delnflux import delnflux, lap_corner_weights
@@ -784,8 +868,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     sgrid, shalo, scfg = scase.grid, scase.halo, scase.config.d_sw
     dt = 2.0 * scase.dt2
     st = scase.state
-    chalf, _dhalf = sdemo.step(scase)
-    del _dhalf
+    chalf, dhalf = sdemo.step(scase)
     crx, xfx, ut = flux_prep_x(chalf.uc_x, chalf.vc_x, sgrid, dt)
     cry, yfx, vt = flux_prep_y(chalf.uc_y, chalf.vc_y, sgrid, dt)
     vort = d_sw_ops.absolute_vorticity_centers(chalf.u_y, chalf.v_x, sgrid)
@@ -912,7 +995,122 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"[time] flux_height_update {tuple(f_got.shape)} f32: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    del f_got, f_ref, f_args, fl, crx_i, cry_i, xfx_i, yfx_i, chalf, scase, sgrid, shalo, st
+    del f_got, f_ref, f_args, fl, crx_i, cry_i, xfx_i, yfx_i
+
+    # the nonhydrostatic D-grid pressure gradient on the substep's own
+    # operands; held on the compute domain's u and v points (the plain
+    # version's pads and rolls leave the outer rings unspecified)
+    p_args = (dhalf.u, dhalf.v, dhalf.pk, dhalf.gz, dhalf.pp, dhalf.delp, sgrid, dt)
+    p_got = pgk.nh_p_grad_cuda(*p_args)
+    p_ref = nh_ops.nh_p_grad(*p_args)
+    torch.cuda.synchronize()
+    p_err = {}
+    for nm, a, b in zip(("u", "v"), p_got, p_ref):
+        # the wind points next to a cube corner, whose corner value the
+        # plain version divides by 3 as a reciprocal multiply
+        near = torch.zeros(a.shape[-2:], dtype=torch.bool, device=dev)
+        for _kind, jj, ii, _own in sgrid.corner_table:
+            if nm == "u":
+                near[jj, max(ii - 1, 0):ii + 1] = True
+            else:
+                near[max(jj - 1, 0):jj + 1, ii] = True
+        far = int(ring((a != b) & ~near, 3).sum())
+        a, b = ring(a, 3), ring(b, 3)
+        p_err[nm] = check_close(f"nh_p_grad {nm} (compute domain)", a, b,
+                                4 * ulp * float(b.abs().max()))
+        log_identical(f"nh_p_grad {nm}, compute domain", a, b)
+        log(f"[check] nh_p_grad {nm}: {far} differing points away from the cube corners")
+    ms = time_ms(lambda: pgk.nh_p_grad_cuda(*p_args), 20)
+    plain_ms = time_ms(lambda: nh_ops.nh_p_grad(*p_args), 3)
+    S_, K_, Y_, X_ = dhalf.delp.shape
+    p_consts = [t for _n, t, _s in pgk.grid_operands(sgrid, S_, Y_, X_)]
+    b_ms, b_by = bound(nbytes(*p_args[:6], *p_consts, *p_got),
+                       PGRAD_OPS_PER_POINT * dhalf.delp.numel(), f32)
+    results["pgrad"] = dict(max_abs_err=max(p_err.values()), ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[time] nh_p_grad {tuple(dhalf.delp.shape)} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del p_got, p_ref, p_args, p_consts, chalf, dhalf, scase, sgrid, shalo, st
+    torch.cuda.empty_cache()
+
+    # --- the vertical remap on the pressure columns of the dycore step after
+    #     one acoustic loop from the baroclinic-wave state
+    stcase = ddemo.build_case(n, npz, device=dev, dtype=f32)
+    sst, dcfg = stcase.state, stcase.core.config
+    res = acoustic_loop(sst.u, sst.v, sst.w, sst.delp, sst.pt, sst.phis, stcase.grid,
+                        stcase.halo, dcfg.acoustic(), ddemo.TIMESTEP / dcfg.k_split,
+                        delz=sst.delz)
+    pe1 = torch.cat([torch.full_like(res.delp[:, :1], stcase.grid.ptop),
+                     stcase.grid.ptop + torch.cumsum(res.delp, dim=1)], dim=1)
+    pe2 = (stcase.grid.ak[None, :, None, None]
+           + stcase.grid.bk[None, :, None, None] * pe1[:, -1:])
+    qblock = seeded_tracers(sst.q, 0)
+    pe1_u, pe2_u = rm_ops.pe_at_u_points(pe1), rm_ops.pe_at_u_points(pe2)
+
+    def column_change(out, q_in, p1, p2):
+        """Largest relative change of a column's integral sum(q dp)."""
+        dp1, dp2 = (p[..., 1:, :, :] - p[..., :-1, :, :] for p in (p1, p2))
+        before = (q_in.double() * dp1.double()).sum(dim=-3)
+        after = (out.double() * dp2.double()).sum(dim=-3)
+        scale = (q_in.double().abs() * dp1.double()).sum(dim=-3)
+        return float(((after - before).abs() / scale).max())
+
+    def check_remap(label, q_in, p1, p2, kord, region):
+        got = rmk.remap_cuda(q_in, p1, p2, kord)
+        ref = rm_ops.remap_field(q_in, p1, p2, kord)
+        torch.cuda.synchronize()
+        a, b = region(got), region(ref)
+        err = check_close(f"remap {label} kord {kord}", a, b, 4 * torch.finfo(a.dtype).eps
+                          * float(b.abs().max()))
+        log_identical(f"remap {label} kord {kord}", a, b)
+        K = q_in.shape[-3]
+        ch, ch_ref = (column_change(region(o), region(q_in), region(p1), region(p2))
+                      for o in (got, ref))
+        tol = 4 * K * torch.finfo(a.dtype).eps
+        log(f"[check] remap {label} kord {kord}: column integral changes by {ch:.3e} of its "
+            f"size at most (plain version {ch_ref:.3e}; tolerance {tol:.3e})")
+        if not ch <= tol:
+            raise AssertionError(f"remap {label} kord {kord}: column integral changes by {ch}")
+        return err
+
+    r_err = {}
+    wide = [("pt", res.pt, pe1, pe2, -9, lambda t: ring(t, 3)),
+            ("w", res.w, pe1, pe2, 9, lambda t: ring(t, 3)),
+            ("tracer block nq=9", qblock, pe1[:, None], pe2[:, None], 9, lambda t: ring(t, 3)),
+            ("u", res.u, pe1_u, pe2_u, 9, lambda t: ring(t, 3))]
+    for label, q_in, p1, p2, kord, region in wide:
+        r_err[label] = check_remap(f"{label} {tuple(q_in.shape)} f32", q_in, p1, p2, kord,
+                                   region)
+    # every kord class and sign at a small size, float32 and float64
+    small_gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (f32, torch.float64):
+        Ks, shape = 20, (2, 20, 5, 7)
+        dps = 50 + 100 * torch.rand(shape, generator=small_gen, device=dev, dtype=dtype)
+        p1s = torch.cat([torch.full_like(dps[:, :1], 100.0), 100.0 + torch.cumsum(dps, 1)], 1)
+        # target interfaces within a fraction of a layer of the source ones
+        eta = torch.sort(torch.linspace(0, 1, Ks + 1, device=dev, dtype=dtype)[1:-1, None, None]
+                         + 0.02 * torch.randn((2, Ks - 1, 5, 7), generator=small_gen,
+                                              device=dev, dtype=dtype), dim=1).values
+        p2s = torch.cat([p1s[:, :1], 100.0 + (p1s[:, -1:] - 100.0) * eta, p1s[:, -1:]], 1)
+        qs = (torch.sin(torch.arange(Ks, device=dev, dtype=dtype))[None, :, None, None]
+              + 0.3 * torch.randn(shape, generator=small_gen, device=dev, dtype=dtype))
+        for kord in (6, 7, 8, 9, 10, -6, -7, -8, -9, -10):
+            check_remap(f"{tuple(shape)} {str(dtype)[6:]}", qs, p1s, p2s, kord, lambda t: t)
+    # timed at the main path's calls: one field and the tracer block
+    ms = time_ms(lambda: rmk.remap_cuda(res.pt, pe1, pe2, -9), 20)
+    plain_ms = time_ms(lambda: rm_ops.remap_field(res.pt, pe1, pe2, -9), 3)
+    b_ms, b_by = bound(nbytes(res.pt, pe1, pe2, res.pt), REMAP_OPS_PER_POINT * res.pt.numel(),
+                       f32)
+    ms_q = time_ms(lambda: rmk.remap_cuda(qblock, pe1[:, None], pe2[:, None], 9), 5)
+    bq_ms, bq_by = bound(nbytes(qblock, pe1, pe2, qblock),
+                         REMAP_OPS_PER_POINT * qblock.numel(), f32)
+    # max_abs_err of the line: pt's [K]
+    results["remap"] = dict(max_abs_err=r_err["pt"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+    log(f"[time] remap {tuple(res.pt.shape)} f32 kord -9: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); tracer block "
+        f"{tuple(qblock.shape)} kord 9: kernel {ms_q:.4f} ms, bound {bq_ms:.4f} ms ({bq_by})")
+    del res, pe1, pe2, pe1_u, pe2_u, qblock, wide, stcase, sst
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -1018,6 +1216,30 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                                  f"{rel} on {worst}")
     del a, b, b_case
 
+    # one whole dycore step with the benchmark's flags at k_split=2,
+    # n_split=2, held per field (STEP_F64_REL_TOL of step_f64_scales)
+    small = dict(n=24, npz=8, dtype=torch.float64, k_split=2, n_split=2)
+    a_case = ddemo.build_case(device=dev, **small)
+    b_case = ddemo.build_case(device="cpu", **small)
+    # tracers to transport and remap (the baroclinic-wave state has none)
+    b_case.state.q = seeded_tracers(b_case.state.q, 2)
+    a_case.state.q = b_case.state.q.to(dev)
+    a_st = a_case.core.step_dynamics(a_case.state)
+    b_st = b_case.core.step_dynamics(b_case.state)
+    scales = step_f64_scales(b_case, constants)
+    worst = {}
+    for nm in STEP_FIELDS:
+        x, y = ring(getattr(a_st, nm).cpu(), 3), ring(getattr(b_st, nm), 3)
+        scale = max(float(y.abs().max()), scales.get(nm, 0.0))
+        worst[nm] = float((x - y).abs().max()) / scale
+    log("[check] C24 npz=8 f64 dycore step (k_split=2, n_split=2), card kernels vs CPU plain "
+        "path, max diff over each field's scale: "
+        + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
+    bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
+    if bad:
+        raise AssertionError(f"C24 f64 dycore step departs from the CPU reference: {bad}")
+    del a_case, b_case, a_st, b_st
+
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
     # ------------------------------------------------------------------
@@ -1025,7 +1247,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                 "d2a2c": d2k.LAUNCHES, "c_sw_tail": ck.LAUNCHES, "hydro": hyk.LAUNCHES,
                 "heights": uzk.LAUNCHES, "updatedz_c": uzk.LAUNCHES, "sim1": s1k.LAUNCHES,
                 "fvtp2d_multi": fk.LAUNCHES, "d_sw_tail": dtk.LAUNCHES,
-                "flux_height_update": uzk.LAUNCHES}
+                "flux_height_update": uzk.LAUNCHES, "pgrad": pgk.LAUNCHES,
+                "remap": rmk.LAUNCHES}
 
     def zero_counters():
         for c in counters.values():
@@ -1208,6 +1431,91 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     if failures:
         raise AssertionError("substep checks failed: " + "; ".join(failures))
 
+    # --- whole dycore steps of bench.py's configuration through the demo's
+    #     entry point, with a seeded tracer block to conserve
+    # build_case applies the demo's STABLE_DAMPING: with bench.py's divergence
+    # damping the step diverges from this state (ROADMAP queue 3); the change
+    # is to coefficients only, no operation or launch
+    step_case = ddemo.build_case(n, npz, device=dev, dtype=f32)
+    step_case.state.q = seeded_tracers(step_case.state.q, 3)
+    sgrid = step_case.grid
+    i = (..., slice(sgrid.n_halo, -sgrid.n_halo), slice(sgrid.n_halo, -sgrid.n_halo))
+    area = sgrid.area[i].double()[:, None]
+
+    def masses(st):
+        dm = st.delp[i].double() * area
+        return float(dm.sum()), float((st.q[i].double() * dm[:, None]).sum())
+
+    m0, qm0 = masses(step_case.state)
+    warm, timed = 1, 2
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stout = ddemo.run(case=step_case, warm=warm, steps=timed)
+    st_launches = {k: c[k] for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_steps = warm + timed
+    fst = step_case.state
+    m1, qm1 = masses(fst)
+    n_sub = sum(sum(s_) for s_ in stout["tracer_subcycles"])
+    cfg_ = step_case.core.config
+    per = {"substep": n_steps * cfg_.k_split * cfg_.n_split, "outer": n_steps * cfg_.k_split,
+           "subcycle": n_sub, "step": n_steps}
+    want = {k: 0 for k in counters}
+    for table, count in ((STEP_LAUNCHES_PER_SUBSTEP, per["substep"]),
+                         (STEP_LAUNCHES_PER_OUTER, per["outer"]),
+                         (STEP_LAUNCHES_PER_SUBCYCLE, per["subcycle"]),
+                         (STEP_LAUNCHES_PER_STEP, per["step"])):
+        for k, v in table.items():
+            want[k] += v * count
+    stats = {
+        "finite": all(bool(torch.isfinite(getattr(fst, f)[i]).all())
+                      for f in ("u", "v", "w", "delp", "pt", "delz", "q", "ps")),
+        "delp_min": float(fst.delp[i].min()), "delz_max": float(fst.delz[i].max()),
+        "mass_drift": abs(m1 - m0) / m0, "tracer_drift": abs(qm1 - qm0) / qm0,
+        "ps_min": float(fst.ps[i].min()), "ps_max": float(fst.ps[i].max()),
+        "uv_max": max(float(fst.u[i].abs().max()), float(fst.v[i].abs().max())),
+        "w_max": float(fst.w[i].abs().max()), "pt_min": float(fst.pt[i].min()),
+        "pt_max": float(fst.pt[i].max()),
+    }
+    log(f"[step] C{n} npz={npz} f32 dt={ddemo.TIMESTEP:.0f} s k_split={cfg_.k_split} "
+        f"n_split={cfg_.n_split} d2_bg_k1={cfg_.d2_bg_k1} d2_bg_k2={cfg_.d2_bg_k2} "
+        f"d4_bg={cfg_.d4_bg}, {timed} "
+        f"steps after {warm} warm: "
+        f"{stout['ms_per_step']:.3f} ms/step (ms: {', '.join(f'{t:.3f}' for t in stout['step_ms'])}), "
+        f"{stout['gridpoints_per_s']:.1f} grid-point updates/s, peak memory {peak_gb:.2f} GB, "
+        f"tracer sub-cycles per outer step {stout['tracer_subcycles']}")
+    log(f"[step] after {n_steps} steps: finite {stats['finite']}, delp min "
+        f"{stats['delp_min']:.4f} Pa, delz max {stats['delz_max']:.4f} m, drift of dry mass "
+        f"{stats['mass_drift']:.3e} and of tracer mass {stats['tracer_drift']:.3e} (allowed "
+        f"{STEP_MASS_DRIFT_MAX}), ps in [{stats['ps_min']:.1f}, {stats['ps_max']:.1f}] Pa "
+        f"(allowed {PS_RANGE}), max|u|,|v| {stats['uv_max']:.3f} m/s (allowed {UV_MAX}), "
+        f"max|w| {stats['w_max']:.4e} m/s (allowed {W_MAX}), pt in [{stats['pt_min']:.3f}, "
+        f"{stats['pt_max']:.3f}] K")
+    log(f"[step] launches in {n_steps} steps: {st_launches}")
+    failures = []
+    if not stats["finite"]:
+        failures.append("non-finite fields")
+    if not stats["delp_min"] > 0:
+        failures.append(f"delp min {stats['delp_min']}")
+    if not stats["delz_max"] < 0:
+        failures.append(f"delz max {stats['delz_max']}")
+    for k in ("mass_drift", "tracer_drift"):
+        if not stats[k] <= STEP_MASS_DRIFT_MAX:
+            failures.append(f"{k} {stats[k]}")
+    if not PS_RANGE[0] <= stats["ps_min"] <= stats["ps_max"] <= PS_RANGE[1]:
+        failures.append(f"ps range [{stats['ps_min']}, {stats['ps_max']}]")
+    if not stats["uv_max"] <= UV_MAX:
+        failures.append(f"max|u|,|v| {stats['uv_max']}")
+    if not stats["w_max"] <= W_MAX:
+        failures.append(f"max|w| {stats['w_max']}")
+    for k, c in want.items():
+        if st_launches[k] != c:
+            failures.append(f"kernel {k} launched {st_launches[k]} times, expected {c}")
+        if c <= 0:
+            failures.append(f"kernel {k} not on the step's path")
+    if failures:
+        raise AssertionError("dycore step checks failed: " + "; ".join(failures))
+
     # ------------------------------------------------------------------
     # 5. where the time goes: two more steps under the profiler (after the
     #    launch counts were read), device time by kernel
@@ -1225,6 +1533,11 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     profile_steps("substep up to the vertical solve", lambda: sdemo.step(sout["case"]),
                   sout["ms_median"], top=20)
 
+    def dycore_step():
+        step_case.state = step_case.core.step_dynamics(step_case.state)
+
+    profile_steps("dycore step", dycore_step, stout["ms_per_step"], top=30, calls=1)
+
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
         "fvtp2d": ("pace_tpu_torch/csrc/fvtp2d.cu", "pace_tpu/ops/fvtp2d_pallas.py:135"),
@@ -1239,13 +1552,15 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         "d_sw_tail": ("pace_tpu_torch/csrc/d_sw_tail.cu", "pace_tpu/ops/d_sw_tail_pallas.py:163"),
         "flux_height_update": ("pace_tpu_torch/csrc/updatedz.cu",
                                "pace_tpu/ops/updatedz_pallas.py:235"),
+        "pgrad": ("pace_tpu_torch/csrc/pgrad.cu", "pace_tpu/ops/pgrad_pallas.py:198"),
+        "remap": ("pace_tpu_torch/csrc/remap.cu", "pace_tpu/ops/remap_pallas.py:33"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
         by_path = {"tracer_advection": launches[name], "cgrid_half_step": c_launches[name],
                    "nh_cgrid_half_step": n_launches[name],
-                   "acoustic_substep": s_launches[name]}
+                   "acoustic_substep": s_launches[name], "dycore_step": st_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -33,6 +33,8 @@ SOURCES = {
     "hydro": "hydro.cu",
     "updatedz": "updatedz.cu",
     "sim1": "sim1.cu",
+    "pgrad": "pgrad.cu",
+    "remap": "remap.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op for op

@@ -1,21 +1,21 @@
-"""Acoustic substep: the C-grid half and the D-grid half up to the vertical
-solve.
+"""Acoustic substep loop: the C-grid half, the D-grid half and the D-grid
+pressure gradient, ``n_split`` times.
 
-Port of ``pace_tpu.models.fv3.acoustics._one_substep`` (reference role:
-``pyFV3.stencils.dyn_core.AcousticDynamics``) in two functions.
-:func:`c_grid_half`: the halo exchanges of the substep, the C-grid
-shallow-water half step ``c_sw``, the hydrostatic interface chain or, in the
-nonhydrostatic configuration, the interface-height update and the provisional
-vertical solve, and the C-grid pressure gradient. :func:`d_grid_half`: the
-D-grid step ``d_sw``, the dissipation heating, the exchange of the new
-``delp, pt`` and, in the nonhydrostatic configuration, the advection of the
-interface heights (``updatedz_d``), the vertical solve (``riem_solver3``) and
-the halo refresh after it.
-
-Not ported yet: the D-grid pressure gradient (``nh_p_grad`` over ``a2b_ord4``,
-or the hydrostatic ``one_grad_p``), beta off-centering, ``ray_fast``, the
-final D-grid interface sync, ``_one_substep`` that strings the halves
-together, and the ``n_split`` loop ``acoustic_loop``.
+Port of ``pace_tpu.models.fv3.acoustics`` (reference role:
+``pyFV3.stencils.dyn_core.AcousticDynamics``). One substep,
+:func:`_one_substep`, is built from two halves. :func:`c_grid_half`: the halo
+exchanges of the substep, the C-grid shallow-water half step ``c_sw``, the
+hydrostatic interface chain or, in the nonhydrostatic configuration, the
+interface-height update and the provisional vertical solve, and the C-grid
+pressure gradient. :func:`d_grid_half`: the D-grid step ``d_sw``, the
+dissipation heating, the exchange of the new ``delp, pt`` and, in the
+nonhydrostatic configuration, the advection of the interface heights
+(``updatedz_d``), the vertical solve (``riem_solver3``) and the halo refresh
+after it. The substep then applies the D-grid pressure gradient (the fused
+``nh_p_grad`` or the hydrostatic ``one_grad_p``, with beta off-centering when
+``beta != 0``), the Rayleigh damping ``ray_fast`` when ``rf_fast`` and ``tau >
+0``, and the final D-grid interface sync. :func:`acoustic_loop` runs
+``n_split`` substeps and accumulates the transport fluxes.
 
 Corner-fold protocol (see pace_tpu_torch.parallel.topology): every sweep
 direction gets ghost data folded for that direction — u is y-swept (use
@@ -33,16 +33,18 @@ import torch
 from ... import constants
 from ...ops.c_sw import CGridState, c_sw
 from ...ops.d_sw import DSWConfig, DSWResult, d_sw
+from ...ops.dycore_extras import ray_fast
 from ...ops.folds import CornerPatch
 from ...ops.hydro_kernel import hydrostatic_interfaces_best
 from ...ops.nonhydro import (
     heights_from_delz,
+    nh_p_grad_best,
     riem_solver3,
     riem_solver_c,
     updatedz_c,
     updatedz_d,
 )
-from ...ops.pgrad import p_grad_c
+from ...ops.pgrad import one_grad_p, p_grad_c
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +118,7 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
     carried by the nonhydrostatic configuration only, which needs both.
     ``phis_folds`` is ``halo.update_scalar_folds(phis)``, constant over the
     substeps; it is computed here when absent. :func:`d_grid_half` takes the
-    result; ``_one_substep`` will call both once the D-grid pressure
-    gradient exists.
+    result, and :func:`_one_substep` calls both.
     """
     hydro = config.hydrostatic
     if not hydro and (w is None or delz is None):
@@ -188,8 +189,7 @@ class DGridHalf:
     #: ``d_sw``'s own result: ``w, delp, pt`` as transported, before the
     #: heating, the exchange and the vertical solve
     ds: DSWResult
-    #: D-grid winds after ``d_sw``, interface-synced, before any pressure
-    #: gradient
+    #: D-grid winds after ``d_sw``, before the pressure gradient
     u: torch.Tensor
     v: torch.Tensor
     #: the new ``delp, pt`` (``pt`` with the dissipation heating), exchanged
@@ -236,10 +236,9 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
     ``hydrostatic=True`` the function stops after the exchange and the
     vertical fields of the result are ``None``.
 
-    The pressure gradient (``nh_p_grad`` / ``one_grad_p``), beta
-    off-centering, ``ray_fast`` and the final D-grid interface sync of the
-    substep are not applied yet: ``u, v`` of the result are the winds after
-    ``d_sw`` alone.
+    ``u, v`` of the result are the winds after ``d_sw`` alone:
+    :func:`_one_substep` applies the pressure gradient, ``ray_fast`` and the
+    final D-grid interface sync to them.
     """
     hydro = config.hydrostatic
     if not hydro and (half.w_x is None or half.zh_x is None):
@@ -290,3 +289,136 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
     pp = halo.update_scalar(pp, fold="x")
     gz_if = heights_from_delz(delz, phis_x) * constants.GRAV
     return DGridHalf(**out, w=w, delz=delz, pp=pp, pk=pk_h, pkz=pkz_h, gz=gz_if, ws=ws)
+
+
+@dataclasses.dataclass(frozen=True)
+class AcousticResult:
+    """The state after ``n_split`` substeps and the transport quantities
+    summed over them."""
+
+    u: torch.Tensor
+    v: torch.Tensor
+    w: Optional[torch.Tensor]
+    delp: torch.Tensor
+    pt: torch.Tensor
+    delz: Optional[torch.Tensor]
+    # accumulated over the n_split substeps, for tracer transport
+    mfxd: torch.Tensor
+    mfyd: torch.Tensor
+    cxd: torch.Tensor
+    cyd: torch.Tensor
+    xfxd: torch.Tensor
+    yfxd: torch.Tensor
+    #: damping-dissipated KE accumulated over the substeps [J/kg]
+    diss_est: Optional[torch.Tensor] = None
+
+
+def acoustic_loop(u, v, w, delp, pt, phis, grid, halo, config: AcousticConfig,
+                  dt_atmos_k: float, delz=None) -> AcousticResult:
+    """Run ``n_split`` acoustic substeps of length ``dt_atmos_k / n_split``.
+
+    Inputs are stacked tensors (S, [K,] Y, X); ``pt`` is virtual potential
+    temperature, ``phis`` surface geopotential (S, Y, X). The
+    nonhydrostatic configuration also carries ``w`` and ``delz``.
+
+    Beta off-centering (``beta != 0``) applies ``(1-beta) PGF(new state) +
+    beta PGF(previous substep)``. Hydrostatic: the carried increment is
+    seeded with the PGF of the initial state. Nonhydrostatic: the first
+    substep applies the full PGF and the blend starts at the second (the
+    perturbation pressure has no initial value). The substeps run as a
+    Python loop; each one's intermediates are released when it returns.
+    """
+    if not config.hydrostatic and (w is None or delz is None):
+        raise ValueError("nonhydrostatic mode requires w and delz")
+    use_beta = config.beta != 0.0
+    dt = dt_atmos_k / config.n_split
+    dt2 = 0.5 * dt
+    ptop = grid.ptop
+    track_heat = config.d_sw.d_con > 0.0 or config.d_sw.vtdm4 > 0.0
+    # phis is constant over the substeps: exchange its halo once here
+    phis_folds = halo.update_scalar_folds(phis)
+
+    dugf = None
+    if use_beta and config.hydrostatic:
+        delp_h0, pt_h0 = halo.update_scalars([delp, pt], fold="x")
+        _pe, _pl, pk0, _pz, gz0 = hydrostatic_interfaces_best(
+            delp_h0, pt_h0, phis, ptop, need=("pk", "gz"))
+        u0p, v0p = one_grad_p(u, v, pk0, gz0, grid, dt)
+        dugf = (u0p - u, v0p - v)
+        del delp_h0, pt_h0, pk0, gz0, u0p, v0p
+
+    n_acc = 7 if track_heat else 6
+    acc = None
+    for _ in range(config.n_split):
+        res = _one_substep(u, v, w, delp, pt, delz, phis, grid, halo, config, dt, dt2, ptop,
+                           phis_folds=phis_folds, dugf_prev=dugf)
+        u, v, w, delp, pt, delz = res[:6]
+        new = res[6:6 + n_acc]
+        # a zero start would add nothing: the first substep's values are the sums
+        acc = list(new) if acc is None else [a + b for a, b in zip(acc, new)]
+        dugf = res[6 + n_acc] if use_beta else None
+        del res, new
+    mfxd, mfyd, cxd, cyd, xfxd, yfxd = acc[:6]
+    return AcousticResult(
+        u=u, v=v, w=w, delp=delp, pt=pt, delz=delz, mfxd=mfxd, mfyd=mfyd, cxd=cxd, cyd=cyd,
+        xfxd=xfxd, yfxd=yfxd, diss_est=acc[6] if track_heat else None,
+    )
+
+
+def _one_substep(u, v, w, delp, pt, delz, phis, grid, halo, config, dt, dt2, ptop,
+                 phis_folds=None, dugf_prev=None):
+    """One acoustic substep; returns ``(u, v, w, delp, pt, delz, mfx, mfy,
+    cx, cy, xfx, yfx[, heat][, (du_pgf, dv_pgf)])`` as ``pace_tpu``'s does.
+    ``dugf_prev``: the previous substep's D-grid pressure-gradient increments
+    when beta off-centering is active."""
+    hydro = config.hydrostatic
+    if hydro:
+        w, delz = None, None
+    chalf = c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config, dt2, ptop,
+                        phis_folds=phis_folds)
+    dh = d_grid_half(chalf, grid, halo, config, dt, ptop, phis)
+    del chalf
+    u, v, w, delz = dh.u, dh.v, dh.w, dh.delz
+    beta = config.beta
+    dugf_new = None
+    if hydro:
+        # forward-backward: the pressure gradient of the new delp, pt
+        _pe, _peln, pk, _pkz, gz = hydrostatic_interfaces_best(
+            dh.delp, dh.pt, phis, ptop, need=("pk", "gz"))
+        u2, v2 = one_grad_p(u, v, pk, gz, grid, dt)
+        del pk, gz
+        if dugf_prev is not None:
+            du, dv = u2 - u, v2 - v
+            u = u + (1.0 - beta) * du + beta * dugf_prev[0]
+            v = v + (1.0 - beta) * dv + beta * dugf_prev[1]
+            dugf_new = (du, dv)
+        else:
+            u, v = u2, v2
+    else:
+        u2, v2 = nh_p_grad_best(u, v, dh.pk, dh.gz, dh.pp, dh.delp, grid, dt)
+        if beta != 0.0:
+            # the same blend, seeded by a full-PGF first substep (see acoustic_loop)
+            du, dv = u2 - u, v2 - v
+            if dugf_prev is not None:
+                u = u + (1.0 - beta) * du + beta * dugf_prev[0]
+                v = v + (1.0 - beta) * dv + beta * dugf_prev[1]
+            else:
+                u, v = u2, v2
+            dugf_new = (du, dv)
+        else:
+            u, v = u2, v2
+    del u2, v2
+    if config.rf_fast and config.tau > 0.0:
+        # Rayleigh damping inside the substep, over the static reference
+        # pressure (ak, bk at P_REF): a (K,) profile broadcast to the layers
+        pe_ref = grid.ak + grid.bk * constants.P_REF
+        pmid_ref = 0.5 * (pe_ref[1:] + pe_ref[:-1])
+        pe_mid = pmid_ref[:, None, None].expand(dh.delp.shape[-3:])
+        u, v, w = ray_fast(u, v, w, pe_mid, dt, ptop, config.rf_cutoff, config.tau)
+    u, v = halo.sync_vector_interfaces(u, v, kind="dgrid")
+    out = (u, v, w, dh.delp, dh.pt, delz, dh.mfx, dh.mfy, dh.crx, dh.cry, dh.xfx, dh.yfx)
+    if dh.heat is not None:
+        out = out + (dh.heat,)
+    if dugf_new is not None:
+        out = out + (dugf_new,)
+    return out

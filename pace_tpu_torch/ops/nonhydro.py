@@ -3,8 +3,7 @@ the interface-height chains of both halves of the acoustic substep.
 
 Port of ``pace_tpu.ops.nonhydro`` (reference roles:
 ``pyFV3.stencils.{riem_solver_c, riem_solver3, sim1_solver, updatedzc,
-updatedzd}``), less ``nh_p_grad``, which belongs to the D-grid pressure
-gradient.
+updatedzd, nh_p_grad}``).
 
 Formulation (backward-Euler limit a_imp=1):
 
@@ -17,18 +16,20 @@ Formulation (backward-Euler limit a_imp=1):
 - Layer w and delz follow from the solved interface field; the perturbation
   interface pressure feeds the pressure-gradient force.
 
-Four operators have a CUDA kernel: :func:`heights_from_delz`,
+Five operators have a CUDA kernel: :func:`heights_from_delz`,
 :func:`updatedz_c` and :func:`flux_height_update`, the tail of
-:func:`updatedz_d` (``ops/updatedz_kernel.py``), and the ``a_imp == 1`` solve
-behind :func:`sim1_solver_best` (``ops/sim1_kernel.py``). Their plain PyTorch
-versions are :func:`heights_from_delz_plain`, :func:`updatedz_c_plain`,
-:func:`flux_height_update_plain` and :func:`sim1_solver` +
-:func:`_p_fac_floor`; the choice follows
+:func:`updatedz_d` (``ops/updatedz_kernel.py``), the ``a_imp == 1`` solve
+behind :func:`sim1_solver_best` (``ops/sim1_kernel.py``) and the
+nonhydrostatic D-grid pressure gradient :func:`nh_p_grad_best`
+(``ops/pgrad_kernel.py``). Their plain PyTorch versions are
+:func:`heights_from_delz_plain`, :func:`updatedz_c_plain`,
+:func:`flux_height_update_plain`, :func:`sim1_solver` + :func:`_p_fac_floor`
+and :func:`nh_p_grad`; the choice follows
 ``ops/_dispatch.py`` (CUDA tensors take the kernel, CPU tensors the plain
 version).
 
 Where the formulas divide by a number (``/ GRAV``, ``dt /``, ``/ dt2``) the
-plain versions divide by a 0-dim tensor (:func:`_num`): PyTorch turns a
+plain versions divide by a 0-dim tensor (``stencil_utils.scalar_like``): PyTorch turns a
 division by a Python number on a CUDA tensor into a multiplication by its
 reciprocal, which rounds differently from the IEEE division that the kernels,
 the CPU and ``pace_tpu`` perform.
@@ -40,9 +41,12 @@ import torch
 
 from .. import constants
 from ._dispatch import route
+from .pgrad import _pgf_pair, a2b_ord4
+from .pgrad_kernel import nh_p_grad_cuda
 from .sim1_kernel import sim1_solver_cuda
 from .stencil_utils import (
     bcast_k,
+    scalar_like,
     x_cell_to_left_iface,
     x_cell_to_right_iface,
     x_iface_diff,
@@ -54,11 +58,6 @@ from .fvtp2d import fvtp2d_best
 from .updatedz_kernel import flux_height_update_cuda, heights_from_delz_cuda, updatedz_c_cuda
 
 GAMMA = 1.0 / (1.0 - constants.KAPPA)  # cp/cv
-
-
-def _num(x: float, like: torch.Tensor) -> torch.Tensor:
-    """``x`` as a 0-dim tensor of ``like``'s dtype and device."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
 def _shift_down(t: torch.Tensor) -> torch.Tensor:
@@ -132,8 +131,8 @@ def sim1_solver(w, delz, pt, delp, pkz, ws, dt: float, ptop: float = 0.0,
     interface pressure [Pa] (pp[0] = 0 at the model top).
     """
     theta = float(a_imp)
-    dm = delp / _num(constants.GRAV, delp)
-    dt_t = _num(dt, delp)
+    dm = delp / scalar_like(constants.GRAV, delp)
+    dt_t = scalar_like(dt, delp)
 
     # full gas-law layer pressure: rho = dm / (-delz), T_v = pt * pkz,
     # p = rho Rd Tv; pprime vanishes at hydrostatic equilibrium
@@ -208,7 +207,7 @@ def _p_fac_floor(delz_new, pt, delp, pkz, ptop, p_fac: float):
     the thickness:
         (-delz)_max = dm·Rd·Tv / (p_fac·p_hyd).
     """
-    dm = delp / _num(constants.GRAV, delp)
+    dm = delp / scalar_like(constants.GRAV, delp)
     t_v = pt * pkz
     limit = dm * constants.RDGAS * t_v / (p_fac * _hydrostatic_layer_pressure(delp, ptop))
     return torch.maximum(delz_new, -limit)
@@ -261,7 +260,7 @@ def riem_solver_c(w, delz, ptc, delpc, pkz, ws, dt2: float, ptop: float,
 
 def heights_from_delz_plain(delz, phis):
     """Plain PyTorch version of :func:`heights_from_delz`."""
-    zs = phis.unsqueeze(-3) / _num(constants.GRAV, phis)
+    zs = phis.unsqueeze(-3) / scalar_like(constants.GRAV, phis)
     csum = torch.flip(torch.cumsum(torch.flip(delz, dims=(-3,)), dim=-3), dims=(-3,))
     zh_top = zs - csum  # zh_k = zs - sum_{m>=k} delz_m (delz<0 => zh above zs)
     return torch.cat([zh_top, zs * torch.ones_like(delz[..., :1, :, :])], dim=-3)
@@ -293,7 +292,7 @@ def updatedz_c_plain(zh_x, zh_y, xfx_l, yfx_l, area, dt2: float):
     ra = area_b + x_iface_diff(xfx) + y_iface_diff(yfx)
     zh_new = (zh_x * area_b + x_iface_diff(zx * xfx) + y_iface_diff(zy * yfx)) / ra
     zs = zh_x[..., -1:, :, :]
-    ws_c = (zh_new[..., -1:, :, :] - zs)[..., 0, :, :] / _num(dt2, zh_x)
+    ws_c = (zh_new[..., -1:, :, :] - zs)[..., 0, :, :] / scalar_like(dt2, zh_x)
     zh_new = torch.cat([zh_new[..., :-1, :, :], zs], dim=-3)
     return zh_new, ws_c
 
@@ -348,3 +347,44 @@ def updatedz_d(zh_x, zh_y, crx, cry, xfx, yfx, grid, dt: float, hord: int = 5):
     crx_i, cry_i, xfx_i, yfx_i = (_to_iface(f) for f in (crx, cry, xfx, yfx))
     fl = fvtp2d_best(zh_x, zh_y, crx_i, cry_i, xfx_i, yfx_i, grid.area, hord)
     return flux_height_update(zh_x, fl.fx, fl.fy, xfx_i, yfx_i, grid.area)
+
+
+def nh_p_grad(u, v, pk, gz, pp, delp, grid, dt: float):
+    """Nonhydrostatic split-form D-grid pressure gradient (reference
+    nh_p_grad): the hydrostatic ``pk`` contour plus the perturbation-pressure
+    contour over ``delp``, each on corner values from :func:`a2b_ord4`.
+    ``pk, gz, pp`` are interface fields ``(S, K+1, Y, X)``, ``delp`` a layer
+    field; returns ``(u + du_h + du_p, v + dv_h + dv_p)``, summed in that
+    order."""
+    pk_b = a2b_ord4(pk, grid)
+    gz_b = a2b_ord4(gz, grid)
+    pp_b = a2b_ord4(pp, grid)
+    delp_b = a2b_ord4(delp, grid)
+    rdx = bcast_k(grid.rdx, u)
+    rdy = bcast_k(grid.rdy, v)
+    du_h = _pgf_pair(gz_b[..., :, :-1], gz_b[..., :, 1:], pk_b[..., :, :-1], pk_b[..., :, 1:],
+                     dt, rdx)
+    dv_h = _pgf_pair(gz_b[..., :-1, :], gz_b[..., 1:, :], pk_b[..., :-1, :], pk_b[..., 1:, :],
+                     dt, rdy)
+
+    def pert_pair(gz1, gz2, pp1, pp2, dp1, dp2, rdl):
+        g1k, g1kp = gz1[..., :-1, :, :], gz1[..., 1:, :, :]
+        g2k, g2kp = gz2[..., :-1, :, :], gz2[..., 1:, :, :]
+        p1k, p1kp = pp1[..., :-1, :, :], pp1[..., 1:, :, :]
+        p2k, p2kp = pp2[..., :-1, :, :], pp2[..., 1:, :, :]
+        term = (g1kp - g2k) * (p2kp - p1k) + (g1k - g2kp) * (p1kp - p2k)
+        return dt * rdl * term / (dp1 + dp2)
+
+    du_p = pert_pair(gz_b[..., :, :-1], gz_b[..., :, 1:], pp_b[..., :, :-1], pp_b[..., :, 1:],
+                     delp_b[..., :, :-1], delp_b[..., :, 1:], rdx)
+    dv_p = pert_pair(gz_b[..., :-1, :], gz_b[..., 1:, :], pp_b[..., :-1, :], pp_b[..., 1:, :],
+                     delp_b[..., :-1, :], delp_b[..., 1:, :], rdy)
+    return u + du_h + du_p, v + dv_h + dv_p
+
+
+def nh_p_grad_best(u, v, pk, gz, pp, delp, grid, dt: float):
+    """Dispatched :func:`nh_p_grad`: CUDA tensors take the fused kernel
+    (``ops/pgrad_kernel.py``), CPU tensors the plain version."""
+    if route(u, v, pk, gz, pp, delp) == "kernel":
+        return nh_p_grad_cuda(u, v, pk, gz, pp, delp, grid, float(dt))
+    return nh_p_grad(u, v, pk, gz, pp, delp, grid, dt)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .stencil_utils import sx, sy
+from .stencil_utils import scalar_like, sx, sy
 
 #: hord values accepted (reference namelist hord_mt/hord_vt/hord_tm/hord_dp/hord_tr)
 SUPPORTED_HORDS = (1, 5, 6, 7, 8)
@@ -28,6 +28,46 @@ def _al_unlimited(q, shift):
     return (7.0 / 12.0) * (shift(q, -1) + q) - (1.0 / 12.0) * (
         shift(q, -2) + shift(q, 1)
     )
+
+
+def _limited_slope(q, shift):
+    """Van Leer / CW84 limited slope per cell: bounds al within neighbors."""
+    dm = 0.5 * (shift(q, 1) - shift(q, -1))
+    dq_r = shift(q, 1) - q
+    dq_l = q - shift(q, -1)
+    mono = dq_r * dq_l > 0.0
+    lim = torch.minimum(torch.abs(dm), 2.0 * torch.minimum(torch.abs(dq_r), torch.abs(dq_l)))
+    return torch.where(mono, torch.sign(dm) * lim, torch.zeros_like(lim))
+
+
+def _al_limited(q, shift):
+    """CW84 interface interpolation from limited slopes: al_i in
+    [min, max](q_{i-1}, q_i). The division by 6 is by a 0-dim tensor
+    (:func:`scalar_like`)."""
+    dm = _limited_slope(q, shift)
+    return 0.5 * (shift(q, -1) + q) + (shift(dm, -1) - dm) / scalar_like(6.0, q)
+
+
+def _overshoot_limit(bl, br):
+    """CW84 parabola overshoot corrections on interface perturbations (bl =
+    aL - q, br = aR - q), without extremum flattening: a parabola that
+    overshoots right gets bl = -2 br, one that overshoots left br = -2 bl."""
+    da = br - bl
+    a6 = -3.0 * (bl + br)
+    over_r = da * a6 > da * da
+    over_l = -(da * da) > da * a6
+    bl2 = torch.where(over_r, -2.0 * br, bl)
+    br2 = torch.where(over_l & ~over_r, -2.0 * bl, br)
+    return bl2, br2
+
+
+def _monotone_limit(q, bl, br):
+    """Colella-Woodward monotonicity constraint: :func:`_overshoot_limit`,
+    and a local extremum (bl*br >= 0) flattened to a constant."""
+    bl2, br2 = _overshoot_limit(bl, br)
+    extremum = bl * br >= 0.0
+    zero = torch.zeros_like(bl)
+    return torch.where(extremum, zero, bl2), torch.where(extremum, zero, br2)
 
 
 def _dm_mono(q, shift):

@@ -28,6 +28,13 @@ def sy(a: torch.Tensor, n: int) -> torch.Tensor:
     return torch.roll(a, -n, dims=-2)
 
 
+def scalar_like(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a 0-dim tensor of ``like``'s dtype and device. Dividing by it
+    is a true division on CUDA tensors too: PyTorch turns a division by a
+    Python number into a multiplication by its reciprocal there."""
+    return torch.tensor(x, dtype=like.dtype, device=like.device)
+
+
 def bcast_k(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Broadcast a 2-D-per-shard grid tensor (S, Y, X) against a field with
     extra axes between S and (Y, X), e.g. (S, K, Y, X) or (S, nq, K, Y, X)."""

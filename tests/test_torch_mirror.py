@@ -62,5 +62,12 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.ops.d_sw",
         "pace_tpu_torch.ops.d_sw_tail_kernel",
         "pace_tpu_torch.demos.acoustic_substep",
+        "pace_tpu_torch.ops.pgrad_kernel",
+        "pace_tpu_torch.ops.remapping",
+        "pace_tpu_torch.ops.remap_kernel",
+        "pace_tpu_torch.ops.dycore_extras",
+        "pace_tpu_torch.ops.moist_cv",
+        "pace_tpu_torch.models.fv3.dycore",
+        "pace_tpu_torch.demos.dycore_step",
     }
     assert expected <= set(result["modules"])
