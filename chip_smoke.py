@@ -26,18 +26,22 @@ Phases (any failure raises and exits non-zero):
    float64 (see ``check_sim1``). D-grid half, on the fields of one substep:
    the multi-field transport, the D-grid tail, the flux-form height update
    and the nonhydrostatic pressure gradient (``nh_p_grad``) within 4 ulp of
-   each output's maximum on the compute domain. The vertical remap, on the
-   pressure columns after one acoustic loop of the dycore step: one field
-   with kord -9 and 9, the tracer block and the u-point winds with kord 9,
-   every kord class at a small size in float32 and float64, within 4 ulp of
-   each output's maximum, with the column integral conserved;
+   each output's maximum on the compute domain, ``nh_p_grad`` bit-identical
+   away from the cube corners and on the seams between the kernel's interior
+   and edge tiles. The vertical remap, on the pressure columns after one
+   acoustic loop of the dycore step: pt with kord -9, w, the tracer block,
+   the u- and v-point winds and the specific volume with kord 9, pt on a
+   197 x 199 plane (the ragged last column tile), every kord class at a
+   small size in float32 and float64, bit-identical to the plain version,
+   with the column integral conserved;
 3. small-input references in float64, kernel path on the card against the
    plain path on the CPU: the tracer-advection demo at C24 and the C-grid
    half step at C24 in both configurations, within 1e-12, and the three
    outputs of the vertical solve on that half step's fields; the substep up
    to the vertical solve; one whole dycore step at C24 npz=8 (k_split=2,
    n_split=2) within ``STEP_F64_REL_TOL`` of each field's scale
-   (``step_f64_scales``);
+   (``step_f64_scales``), and that step again on the card with the pressure
+   gradient's u and v set to NaN outside the compute domain, identical;
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
@@ -301,10 +305,12 @@ def check_against_f64(label, got, plain, truth, ulp):
 
 
 def log_identical(label, got, ref):
-    """Log how many points of ``got`` differ from the plain version at all."""
+    """Log how many points of ``got`` differ from the plain version at all;
+    returns that count."""
     n_diff = int((got != ref).sum())
     log(f"[check] {label}: {n_diff} of {got.numel()} points differ from the plain version"
         + (" (bit-identical)" if n_diff == 0 else ""))
+    return n_diff
 
 
 #: float64 tolerances of the vertical solve, as shares of each output's
@@ -406,6 +412,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     from pace_tpu_torch.demos import cgrid_half_step as cdemo
     from pace_tpu_torch.demos import dycore_step as ddemo
     from pace_tpu_torch.demos import tracer_advection as demo
+    from pace_tpu_torch.models.fv3 import acoustics
     from pace_tpu_torch.models.fv3.acoustics import acoustic_loop
     from pace_tpu_torch.ops import c_sw as c_sw_ops
     from pace_tpu_torch.ops import c_sw_tail_kernel as ck
@@ -1004,7 +1011,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     p_got = pgk.nh_p_grad_cuda(*p_args)
     p_ref = nh_ops.nh_p_grad(*p_args)
     torch.cuda.synchronize()
-    p_err = {}
+    p_err, near_corners = {}, {}
     for nm, a, b in zip(("u", "v"), p_got, p_ref):
         # the wind points next to a cube corner, whose corner value the
         # plain version divides by 3 as a reciprocal multiply
@@ -1014,22 +1021,47 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                 near[jj, max(ii - 1, 0):ii + 1] = True
             else:
                 near[max(jj - 1, 0):jj + 1, ii] = True
+        near_corners[nm] = near
         far = int(ring((a != b) & ~near, 3).sum())
         a, b = ring(a, 3), ring(b, 3)
         p_err[nm] = check_close(f"nh_p_grad {nm} (compute domain)", a, b,
                                 4 * ulp * float(b.abs().max()))
         log_identical(f"nh_p_grad {nm}, compute domain", a, b)
         log(f"[check] nh_p_grad {nm}: {far} differing points away from the cube corners")
+        if far:
+            raise AssertionError(f"nh_p_grad {nm}: {far} points differ away from the cube corners")
+    # the seams between the kernel's interior tiles (no blends) and its edge
+    # tiles: the u and v points on either side of each boundary between the
+    # two classes, held on the compute domain away from the cube corners
+    S_, K_, Y_, X_ = dhalf.delp.shape
+    edge = pgk.tile_classes(sgrid, S_, Y_, X_)
+    TY, TX = pgk.TILE
+    for nm, a, b in zip(("u", "v"), p_got, p_ref):
+        Yo, Xo = a.shape[-2:]
+        cls = edge[:, torch.arange(Yo, device=dev) // TY][:, :, torch.arange(Xo, device=dev) // TX]
+        seam = torch.zeros_like(cls)
+        seam[:, 1:] |= cls[:, 1:] != cls[:, :-1]
+        seam[:, :-1] |= cls[:, :-1] != cls[:, 1:]
+        seam[:, :, 1:] |= cls[:, :, 1:] != cls[:, :, :-1]
+        seam[:, :, :-1] |= cls[:, :, :-1] != cls[:, :, 1:]
+        seam = ring(seam & ~near_corners[nm], 3)[:, None]
+        n_seam = int(seam.sum()) * K_
+        bad = int(((ring(a, 3) != ring(b, 3)) & seam).sum())
+        log(f"[check] nh_p_grad {nm}: {int((~edge).sum())} interior and {int(edge.sum())} edge "
+            f"tiles of {TY}x{TX}; {bad} of {n_seam} points on the seams between the two "
+            "classes differ from the plain version")
+        if bad or (not n_seam and bool(edge.any()) and bool((~edge).any())):
+            raise AssertionError(f"nh_p_grad {nm}: {bad} seam points differ ({n_seam} seam points)")
     ms = time_ms(lambda: pgk.nh_p_grad_cuda(*p_args), 20)
     plain_ms = time_ms(lambda: nh_ops.nh_p_grad(*p_args), 3)
-    S_, K_, Y_, X_ = dhalf.delp.shape
     p_consts = [t for _n, t, _s in pgk.grid_operands(sgrid, S_, Y_, X_)]
-    b_ms, b_by = bound(nbytes(*p_args[:6], *p_consts, *p_got),
-                       PGRAD_OPS_PER_POINT * dhalf.delp.numel(), f32)
+    p_bytes = nbytes(*p_args[:6], *p_consts, *p_got)
+    b_ms, b_by = bound(p_bytes, PGRAD_OPS_PER_POINT * dhalf.delp.numel(), f32)
     results["pgrad"] = dict(max_abs_err=max(p_err.values()), ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time] nh_p_grad {tuple(dhalf.delp.shape)} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[time] nh_p_grad {tuple(dhalf.delp.shape)} f32: kernel {ms:.4f} ms "
+        f"({p_bytes / ms / 1e6:.1f} GB/s of the bound's bytes), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
     del p_got, p_ref, p_args, p_consts, chalf, dhalf, scase, sgrid, shalo, st
     torch.cuda.empty_cache()
 
@@ -1046,6 +1078,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
            + stcase.grid.bk[None, :, None, None] * pe1[:, -1:])
     qblock = seeded_tracers(sst.q, 0)
     pe1_u, pe2_u = rm_ops.pe_at_u_points(pe1), rm_ops.pe_at_u_points(pe2)
+    pe1_v, pe2_v = rm_ops.pe_at_v_points(pe1), rm_ops.pe_at_v_points(pe2)
+    # the specific volume, as DynamicalCore._remap remaps it
+    spec_vol = res.delz / (pe1[:, 1:] - pe1[:, :-1])
 
     def column_change(out, q_in, p1, p2):
         """Largest relative change of a column's integral sum(q dp)."""
@@ -1062,7 +1097,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         a, b = region(got), region(ref)
         err = check_close(f"remap {label} kord {kord}", a, b, 4 * torch.finfo(a.dtype).eps
                           * float(b.abs().max()))
-        log_identical(f"remap {label} kord {kord}", a, b)
+        if log_identical(f"remap {label} kord {kord}", a, b):
+            raise AssertionError(f"remap {label} kord {kord}: not bit-identical to the plain "
+                                 "version")
         K = q_in.shape[-3]
         ch, ch_ref = (column_change(region(o), region(q_in), region(p1), region(p2))
                       for o in (got, ref))
@@ -1077,10 +1114,20 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     wide = [("pt", res.pt, pe1, pe2, -9, lambda t: ring(t, 3)),
             ("w", res.w, pe1, pe2, 9, lambda t: ring(t, 3)),
             ("tracer block nq=9", qblock, pe1[:, None], pe2[:, None], 9, lambda t: ring(t, 3)),
-            ("u", res.u, pe1_u, pe2_u, 9, lambda t: ring(t, 3))]
+            ("u", res.u, pe1_u, pe2_u, 9, lambda t: ring(t, 3)),
+            ("v", res.v, pe1_v, pe2_v, 9, lambda t: ring(t, 3)),
+            ("delz / dp1", spec_vol, pe1, pe2, 9, lambda t: ring(t, 3))]
     for label, q_in, p1, p2, kord, region in wide:
         r_err[label] = check_remap(f"{label} {tuple(q_in.shape)} f32", q_in, p1, p2, kord,
                                    region)
+    # a plane of 197 x 199 columns, which is no multiple of the kernel's
+    # column tile (and whose rows are not 16-byte aligned): the ragged last
+    # tile, on every column
+    rag = (slice(None), slice(None), slice(0, 197))
+    p1r, p2r, ptr_ = (torch.cat([t[rag], t[rag][..., :1]], -1).contiguous()
+                      for t in (pe1, pe2, res.pt))
+    r_err["ragged"] = check_remap(f"pt {tuple(ptr_.shape)} f32", ptr_, p1r, p2r, -9, lambda t: t)
+    del spec_vol, pe1_v, pe2_v, p1r, p2r, ptr_
     # every kord class and sign at a small size, float32 and float64
     small_gen = torch.Generator(device=dev).manual_seed(1)
     for dtype in (f32, torch.float64):
@@ -1106,10 +1153,14 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                          REMAP_OPS_PER_POINT * qblock.numel(), f32)
     # max_abs_err of the line: pt's [K]
     results["remap"] = dict(max_abs_err=r_err["pt"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None)
-    log(f"[time] remap {tuple(res.pt.shape)} f32 kord -9: kernel {ms:.4f} ms, plain "
+                            bound_by=b_by, library_ms=None, tracer_block_ms=ms_q,
+                            tracer_block_bound_ms=bq_ms)
+    log(f"[time] remap {tuple(res.pt.shape)} f32 kord -9: kernel {ms:.4f} ms "
+        f"({nbytes(res.pt, pe1, pe2, res.pt) / ms / 1e6:.1f} GB/s of the bound's bytes), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); tracer block "
-        f"{tuple(qblock.shape)} kord 9: kernel {ms_q:.4f} ms, bound {bq_ms:.4f} ms ({bq_by})")
+        f"{tuple(qblock.shape)} kord 9: kernel {ms_q:.4f} ms "
+        f"({nbytes(qblock, pe1, pe2, qblock) / ms_q / 1e6:.1f} GB/s), bound {bq_ms:.4f} ms "
+        f"({bq_by})")
     del res, pe1, pe2, pe1_u, pe2_u, qblock, wide, stcase, sst
     torch.cuda.empty_cache()
 
@@ -1224,6 +1275,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # tracers to transport and remap (the baroclinic-wave state has none)
     b_case.state.q = seeded_tracers(b_case.state.q, 2)
     a_case.state.q = b_case.state.q.to(dev)
+    q_step = a_case.state.q.clone()
     a_st = a_case.core.step_dynamics(a_case.state)
     b_st = b_case.core.step_dynamics(b_case.state)
     scales = step_f64_scales(b_case, constants)
@@ -1238,7 +1290,35 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
     if bad:
         raise AssertionError(f"C24 f64 dycore step departs from the CPU reference: {bad}")
-    del a_case, b_case, a_st, b_st
+    # the pressure gradient's u and v outside the compute domain, where the
+    # kernel's clamped reads and the plain version's pads part, are never
+    # read: the same step with them poisoned by NaN gives the same state
+    p_case = ddemo.build_case(device=dev, **small)
+    p_case.state.q = q_step.clone()
+    orig_pgrad = acoustics.nh_p_grad_best
+
+    def poisoned_pgrad(*args, **kw):
+        outs = []
+        for t in orig_pgrad(*args, **kw):
+            keep = ring(t, 3).clone()
+            t = torch.full_like(t, float("nan"))
+            t[..., 3:t.shape[-2] - 3, 3:t.shape[-1] - 3] = keep
+            outs.append(t)
+        return tuple(outs)
+
+    acoustics.nh_p_grad_best = poisoned_pgrad
+    try:
+        p_st = p_case.core.step_dynamics(p_case.state)
+    finally:
+        acoustics.nh_p_grad_best = orig_pgrad
+    differ = [nm for nm in STEP_FIELDS
+              if not torch.equal(ring(getattr(p_st, nm), 3), ring(getattr(a_st, nm), 3))]
+    log("[check] C24 npz=8 f64 dycore step with nh_p_grad's u, v outside the compute domain "
+        f"set to NaN: {len(STEP_FIELDS) - len(differ)} of {len(STEP_FIELDS)} fields identical "
+        f"to the step without{': ' + ', '.join(differ) if differ else ''}")
+    if differ:
+        raise AssertionError(f"the step reads nh_p_grad's ghost columns: {differ}")
+    del a_case, b_case, a_st, b_st, p_case, p_st, q_step
 
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it

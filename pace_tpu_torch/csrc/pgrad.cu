@@ -25,27 +25,49 @@
 // 3.35 TB/s; the arithmetic (about 4 x 30 operations per corner and level
 // for the interpolations, 2 x 25 per edge for the pairs) is about 0.05 ms at
 // 67 TFLOP/s.
-// Design: one block per (8 x 32 tile of u/v points, shard) walks the
-// levels. For each interface k it forms the x-interface values of the four
-// centre planes on the tile's rows and a ring of 2 (stage A, x-taps read
-// through L1), the corner values of the tile and one more row and column
-// from them (stage B, into a ring of 2 interfaces in shared memory), and
-// then the layer k-1 pair from interfaces k-1 and k (stage C). Each
-// interface is interpolated once; delp's corner values of layer k wait in
-// the slot of interface k. Shared memory: 3960 values (15.8 KB in f32). The
-// cube corners on a tile's corner points are listed once per block.
+// Design: one block of 256 threads per (16 x 32 tile of u/v points, shard,
+// chunk of levels) walks the chunk's interfaces. The raw centre planes of
+// interface k+1 (pk, gz, pp, delp on the tile and a ring of 2, reads clamped
+// into the plane) are copied into one slot of a two-slot ring in shared
+// memory with cp.async while interface k is computed from the other slot:
+// stage A forms the x-interface values on the tile's rows and a ring of 2,
+// stage B the corner values of the tile and one more row and column (into a
+// ring of two interfaces), stage C the layer pair k-1 from interfaces k-1
+// and k. The taps come from shared memory, so each input byte leaves device
+// memory once per block. Each block classifies its tile once
+// (ops/pgrad_kernel.py tile_classes): a tile that meets no W/E/S/N tile-edge
+// line (nor the first line inside one) and holds no cube corner takes a path
+// with no blends and no flag or ghost-weight reads, 55 of the 91 tiles of a
+// C192 shard. The others stage the tile's edge vectors and the ghost weights
+// of its edge column and row once per block and give the blends items of
+// their own: the x-interface values of the blended columns, the S/N edge
+// row's y-interface values (formed once per level, not four times per
+// corner), and the cube corners; only taps that wrap around the plane read
+// device memory. The levels are cut into as many chunks as keep the card's
+// block slots evenly filled (each chunk forms its first interface once
+// more). Shared memory: 13,433 values (54 KB in f32) and 64 registers a
+// thread: four blocks, 1024 threads, an SM.
+// What holds it (NVIDIA H100 80GB HBM3, C192 npz=79 f32): instruction issue,
+// with three barriers a level and four true divisions a wind point and level
+// in the pair stage; it moves its bound's bytes at about a quarter of the
+// card's memory rate (tools/torch_kernel_ab.py, PERF.md).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int kThreads = TX * TY;
-constexpr int QR = TY + 4;  // x-interface rows staged: j0-2 .. j0+TY+1
-constexpr int QC = TX + 1;  // x-interface columns: i0 .. i0+TX
-constexpr int BR = TY + 1;  // corner rows of the tile: j0 .. j0+TY
-constexpr int BC = TX + 1;  // corner columns: i0 .. i0+TX
+constexpr int TY = 16;
+constexpr int kThreads = 256;
+constexpr int NP = 4;               // pk, gz, pp, delp
+constexpr int HR = 2;               // ring of centre cells staged around the tile
+constexpr int SR = TY + 2 * HR;     // staged rows: j0-2 .. j0+TY+1
+constexpr int SC = TX + 2 * HR;     // staged columns: i0-2 .. i0+TX+1
+constexpr int QR = TY + 4;          // x-interface rows: j0-2 .. j0+TY+1
+constexpr int QC = TX + 1;          // x-interface columns: i0 .. i0+TX
+constexpr int BR = TY + 1;          // corner rows of the tile: j0 .. j0+TY
+constexpr int BC = TX + 1;          // corner columns: i0 .. i0+TX
+constexpr int YC = TX + 4;          // y-interface columns of an S/N edge row: i0-2 .. i0+TX+1
 constexpr int kMaxTileCorners = 8;  // cube corners a tile's corner points can hold
 
 template <typename T>
@@ -74,47 +96,88 @@ struct Args {
   T* v_out;
 };
 
+// shared memory of a block: offsets, in values of T, of
+constexpr int kRaw = 0;                      // [2][NP][SR][SC] staged centre planes
+constexpr int kQx = kRaw + 2 * NP * SR * SC; // [NP][QR][QC] x-interface values
+constexpr int kBs = kQx + NP * QR * QC;      // [2][NP][BR][BC] corners of two interfaces
+constexpr int kEx = kBs + 2 * NP * BR * BC;  // [QC] ew + ee on x-interface i0+il
+constexpr int kGlx = kEx + QC;               // [QC]
+constexpr int kInw = kGlx + QC;              // [QC] the W edge left of i (one-sided cubic)
+constexpr int kIne = kInw + QC;              // [QC]
+constexpr int kXany = kIne + QC;             // [QC] 1 where any W/E blend applies
+constexpr int kEy = kXany + QC;              // [BR] es + en on corner row j0+jl
+constexpr int kGsy = kEy + BR;               // [BR]
+constexpr int kIns = kGsy + BR;              // [BR]
+constexpr int kInn = kIns + BR;              // [BR]
+constexpr int kXw = kInn + BR;               // [3][QR] ghost weights of the W/E edge column
+constexpr int kYw = kXw + 3 * QR;            // [3][YC] ghost weights of the S/N edge row
+constexpr int kYq = kYw + 3 * YC;            // [NP][YC] that row's y-interface values
+constexpr int kValues = kYq + NP * YC;
+
 __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
 }
 
-// q[r, c] of one (Y, X) plane, indices clamped into the plane
 template <typename T>
-__device__ __forceinline__ T Q(const T* q, int r, int c, int Y, int X) {
-  return __ldg(q + clampi(r, 0, Y - 1) * X + clampi(c, 0, X - 1));
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// x-interface value at row r (inside the plane), interface i (0..X): the
-// 4th-order interpolation with the W/E tile-edge blends of a2b_ord4
+// The tile's view of one centre plane: the staged window, with device
+// memory for the taps outside it (the blends' outermost taps and those
+// that wrap around the plane)
 template <typename T>
-__device__ T x_iface(const Args<T>& A, const T* q, int s, int r, int i, int Y,
-                     int X) {
-  const int X1 = X + 1;
-  const T qm1 = Q(q, r, i - 1, Y, X), q0 = Q(q, r, i, Y, X);
-  const T qm2 = Q(q, r, i - 2, Y, X), qp1 = Q(q, r, i + 1, Y, X);
-  T val = T(0.5625) * (qm1 + q0) + T(-0.0625) * (qm2 + qp1);
-  const T ex = A.ew[s * X1 + i] + A.ee[s * X1 + i];
+struct Plane {
+  const T* win;  // [SR][SC], row 0 = plane row j0-2, column 0 = i0-2
+  const T* g;    // the plane in device memory
+  int j0, i0, Y, X;
+  // q[r, c] with indices clamped into the plane
+  __device__ __forceinline__ T operator()(int r, int c) const {
+    r = clampi(r, 0, Y - 1);
+    c = clampi(c, 0, X - 1);
+    const int lr = r - (j0 - HR), lc = c - (i0 - HR);
+    if (lr >= 0 && lr < SR && lc >= 0 && lc < SC) return win[lr * SC + lc];
+    return __ldg(g + r * X + c);
+  }
+};
+
+// The W/E tile-edge blends of a2b_ord4 on the x-interface value ``val`` at
+// row r (inside the plane), interface i = i0 + il, from its four taps and
+// the ghost weights (w0, wp, wm) of (r, i)
+template <typename T>
+__device__ __forceinline__ T x_blends(const T* sh, const Plane<T> Q, T w0, T wp, T wm, T val,
+                                   T qm1, T q0, T qm2, T qp1, int r, int i, int il) {
+  const int Y = Q.Y;
+  const T ex = sh[kEx + il];
   if (ex != T(0)) {
-    const T gl = A.glx[s * X1 + i];
+    const T gl = sh[kGlx + il];
     const T gr = T(1) - gl;
     const int rp = r + 1 < Y ? r + 1 : r + 1 - Y;  // the plain version's rolls
     const int rm = r - 1 >= 0 ? r - 1 : r - 1 + Y;
     const T g0 = gl * qm1 + gr * q0;
-    const T gp = gl * Q(q, rp, i - 1, Y, X) + gr * Q(q, rp, i, Y, X);
-    const T gm = gl * Q(q, rm, i - 1, Y, X) + gr * Q(q, rm, i, Y, X);
+    const T gp = gl * Q(rp, i - 1) + gr * Q(rp, i);
+    const T gm = gl * Q(rm, i - 1) + gr * Q(rm, i);
     const T inside = gl * q0 + gr * qm1;
-    const int w = (s * Y + r) * X1 + i;
-    const T gt = (A.xw0[w] * g0 + A.xwp[w] * gp) + A.xwm[w] * gm;
+    const T gt = (w0 * g0 + wp * gp) + wm * gm;
     const T qm = T(0.5) * (inside + gt);
     val = val + ex * (qm - val);
   }
-  const T in_w = A.ew[s * X1 + (i == 0 ? X : i - 1)];
-  const T in_e = A.ee[s * X1 + (i == X ? 0 : i + 1)];
+  const T in_w = sh[kInw + il];
+  const T in_e = sh[kIne + il];
   if (in_w != T(0) || in_e != T(0)) {
     const T os_r = ((T(0.3125) * qm1 + T(0.9375) * q0) - T(0.3125) * qp1) +
-                   T(0.0625) * Q(q, r, i + 2, Y, X);
+                   T(0.0625) * Q(r, i + 2);
     const T os_l = ((T(0.3125) * q0 + T(0.9375) * qm1) - T(0.3125) * qm2) +
-                   T(0.0625) * Q(q, r, i - 3, Y, X);
+                   T(0.0625) * Q(r, i - 3);
     const T a = in_w * (os_r - val);
     const T b = in_e * (os_l - val);
     val = (val + a) + b;
@@ -122,37 +185,37 @@ __device__ T x_iface(const Args<T>& A, const T* q, int s, int r, int i, int Y,
   return val;
 }
 
-// y-interface value at interface row j (0..Y), column c (inside the plane),
-// with the S/N tile-edge blends; called on S/N edge rows only
+// y-interface value at interface row j = j0 + jl (an S/N edge row), column
+// c (inside the plane), with the S/N tile-edge blends and the ghost weights
+// (w0, wp, wm) of (j, c)
 template <typename T>
-__device__ T y_iface(const Args<T>& A, const T* q, int s, int j, int c, int Y,
-                     int X) {
-  const int Y1 = Y + 1;
-  const T qm1 = Q(q, j - 1, c, Y, X), q0 = Q(q, j, c, Y, X);
-  const T qm2 = Q(q, j - 2, c, Y, X), qp1 = Q(q, j + 1, c, Y, X);
+__device__ __forceinline__ T y_iface(const T* sh, const Plane<T> Q, T w0, T wp, T wm, int j,
+                                  int jl, int c) {
+  const int X = Q.X;
+  const T qm1 = Q(j - 1, c), q0 = Q(j, c);
+  const T qm2 = Q(j - 2, c), qp1 = Q(j + 1, c);
   T val = T(0.5625) * (qm1 + q0) + T(-0.0625) * (qm2 + qp1);
-  const T ey = A.es[s * Y1 + j] + A.en[s * Y1 + j];
+  const T ey = sh[kEy + jl];
   if (ey != T(0)) {
-    const T gs = A.gsy[s * Y1 + j];
+    const T gs = sh[kGsy + jl];
     const T gn = T(1) - gs;
     const int cp = c + 1 < X ? c + 1 : c + 1 - X;
     const int cm = c - 1 >= 0 ? c - 1 : c - 1 + X;
     const T g0 = gs * qm1 + gn * q0;
-    const T gp = gs * Q(q, j - 1, cp, Y, X) + gn * Q(q, j, cp, Y, X);
-    const T gm = gs * Q(q, j - 1, cm, Y, X) + gn * Q(q, j, cm, Y, X);
+    const T gp = gs * Q(j - 1, cp) + gn * Q(j, cp);
+    const T gm = gs * Q(j - 1, cm) + gn * Q(j, cm);
     const T inside = gs * q0 + gn * qm1;
-    const int w = (s * Y1 + j) * X + c;
-    const T gt = (A.yw0[w] * g0 + A.ywp[w] * gp) + A.ywm[w] * gm;
+    const T gt = (w0 * g0 + wp * gp) + wm * gm;
     const T qm = T(0.5) * (inside + gt);
     val = val + ey * (qm - val);
   }
-  const T in_s = A.es[s * Y1 + (j == 0 ? Y : j - 1)];
-  const T in_n = A.en[s * Y1 + (j == Y ? 0 : j + 1)];
+  const T in_s = sh[kIns + jl];
+  const T in_n = sh[kInn + jl];
   if (in_s != T(0) || in_n != T(0)) {
     const T os_n = ((T(0.3125) * qm1 + T(0.9375) * q0) - T(0.3125) * qp1) +
-                   T(0.0625) * Q(q, j + 2, c, Y, X);
+                   T(0.0625) * Q(j + 2, c);
     const T os_s = ((T(0.3125) * q0 + T(0.9375) * qm1) - T(0.3125) * qm2) +
-                   T(0.0625) * Q(q, j - 3, c, Y, X);
+                   T(0.0625) * Q(j - 3, c);
     const T a = in_s * (os_n - val);
     const T b = in_n * (os_s - val);
     val = (val + a) + b;
@@ -160,142 +223,378 @@ __device__ T y_iface(const Args<T>& A, const T* q, int s, int j, int c, int Y,
   return val;
 }
 
+// y-interface value at (j, c) of an S/N edge row that is not the tile's
+// staged one (two such rows in one tile: planes of a few cells only)
 template <typename T>
-__global__ void __launch_bounds__(kThreads) pgrad_kernel(
+__device__ __noinline__ T y_iface_global(const T* yw0, const T* ywp, const T* ywm, const T* sh,
+                                         const Plane<T> Q, int s, int j, int jl, int c) {
+  const int w = (s * (Q.Y + 1) + j) * Q.X + c;
+  return y_iface(sh, Q, yw0[w], ywp[w], ywm[w], j, jl, c);
+}
+
+// cube corner (j, i): the mean of the 3 one-sided diagonal quadratic
+// extrapolations of corner table entry c; a corner beyond the last cell
+// row/column reads 0, other indices wrap
+template <typename T>
+__device__ __forceinline__ T corner_value(const Plane<T> Q, const int* __restrict__ quad, int c,
+                                       int j, int i) {
+  const int Y = Q.Y, X = Q.X;
+  T acc = T(0);
+  for (int qd = 0; qd < 3; ++qd) {
+    const int a = quad[c * 6 + 2 * qd], b = quad[c * 6 + 2 * qd + 1];
+    T cell[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int aa = a >= 0 ? a + d : a - d;
+      const int bb = b >= 0 ? b + d : b - d;
+      cell[d] = T(0);
+      if (j < Y && i < X) cell[d] = Q(((j + aa) % Y + Y) % Y, ((i + bb) % X + X) % X);
+    }
+    const T ext = (T(1.875) * cell[0] - T(1.25) * cell[1]) + T(0.375) * cell[2];
+    acc = qd == 0 ? ext : acc + ext;
+  }
+  return acc / T(3);
+}
+
+// centre plane f (pk, gz, pp, delp) of interface k in device memory
+template <typename T>
+__device__ __forceinline__ const T* plane_ptr(const Args<T>& A, int f, int s, int k, int K,
+                                              long long P) {
+  const long long lev = (long long)s * (K + 1) + k;
+  switch (f) {
+    case 0: return A.pk + lev * P;
+    case 1: return A.gz + lev * P;
+    case 2: return A.pp + lev * P;
+    default: return A.delp + ((long long)s * K + (k < K ? k : 0)) * P;
+  }
+}
+
+// copy the raw planes of interface k (delp only below the last) into one
+// slot; the window's reads clamp into the plane
+template <typename T>
+__device__ __forceinline__ void stage(T* slot, const Args<T>& A, int s, int k, int K, int j0,
+                                      int i0, int Y, int X) {
+  const long long P = (long long)Y * X;
+  const T* g0 = plane_ptr(A, 0, s, k, K, P);
+  const T* g1 = plane_ptr(A, 1, s, k, K, P);
+  const T* g2 = plane_ptr(A, 2, s, k, K, P);
+  const T* g3 = plane_ptr(A, 3, s, k, K, P);
+  for (int e = threadIdx.x; e < SR * SC; e += kThreads) {
+    const int lr = e / SC, lc = e - (e / SC) * SC;
+    const int off = clampi(j0 - HR + lr, 0, Y - 1) * X + clampi(i0 - HR + lc, 0, X - 1);
+    cp_async(slot + e, g0 + off);
+    cp_async(slot + SR * SC + e, g1 + off);
+    cp_async(slot + 2 * SR * SC + e, g2 + off);
+    if (k < K) cp_async(slot + 3 * SR * SC + e, g3 + off);
+  }
+  cp_async_commit();
+}
+
+// The per-block state of a tile that meets a tile-edge line or holds a cube
+// corner, in static shared memory
+struct EdgeTile {
+  int corner[kMaxTileCorners];  // corner table entries on the tile's corner points
+  int corner_at[kMaxTileCorners];  // their (jl * BC + il)
+  int n_corners;
+  int xcols[QC];  // the x-interface columns (il) where a W/E blend applies
+  int n_xcols;
+  int xcol;  // the first W/E edge column (il), or -1: its ghost weights are staged
+  int yrow;  // the first S/N edge row (jl), or -1: its y-interface values are formed
+};
+
+// the interfaces kb .. ke of one tile; EDGE: the tile meets a tile-edge
+// line or holds a cube corner
+template <typename T, bool EDGE>
+__device__ __forceinline__ void walk(const Args<T>& A, T* sh, const EdgeTile& et, T dt,
+                                     const int* __restrict__ quad, int s, int kb, int ke, int K,
+                                     int Y, int X, int j0, int i0) {
+  const int tid = threadIdx.x;
+  const long long P = (long long)Y * X;
+  const int X1 = X + 1;
+  // this thread's u and v points, rows jl and jl + TY/2, and their dt / dx,
+  // the same on every level
+  const int jl_c = tid / TX, il_c = tid % TX;
+  T dtr_u0, dtr_u1, dtr_v0, dtr_v1;
+  {
+    const int i = i0 + il_c, ja = j0 + jl_c, jb = ja + TY / 2;
+    dtr_u0 = (ja <= Y && i < X) ? A.rdx[((long long)s * (Y + 1) + ja) * X + i] * dt : T(0);
+    dtr_u1 = (jb <= Y && i < X) ? A.rdx[((long long)s * (Y + 1) + jb) * X + i] * dt : T(0);
+    dtr_v0 = (ja < Y && i <= X) ? A.rdy[((long long)s * Y + ja) * X1 + i] * dt : T(0);
+    dtr_v1 = (jb < Y && i <= X) ? A.rdy[((long long)s * Y + jb) * X1 + i] * dt : T(0);
+  }
+  // stage A's items: the x-interface values; in an edge tile, then those on
+  // the columns where a W/E blend applies (one item per row, column and
+  // plane), then the y-interface values of the S/N edge row (one per column
+  // and plane)
+  const int n_xa = QR * QC;
+  const int n_xb = EDGE ? et.n_xcols * QR * NP : 0;
+  const int n_a = n_xa + n_xb + (EDGE && et.yrow >= 0 ? NP * YC : 0);
+  // stage B's items: the corner values; in an edge tile, then the cube
+  // corners (one item per corner and plane)
+  const int n_b = BR * BC + (EDGE ? et.n_corners * NP : 0);
+
+  stage(sh + kRaw, A, s, kb, K, j0, i0, Y, X);
+  for (int k = kb; k <= ke; ++k) {
+    const int cur = (k - kb) & 1;
+    if (k < ke) {  // the next interface's planes, into the other slot
+      stage(sh + kRaw + (cur ^ 1) * NP * SR * SC, A, s, k + 1, K, j0, i0, Y, X);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int nf = k < K ? 4 : 3;  // delp has K levels
+    const T* win = sh + kRaw + cur * NP * SR * SC;
+
+    // stage A: x-interface values on rows j0-2 .. j0+TY+1 (clamped)
+    for (int e = tid; e < n_a; e += kThreads) {
+      if (EDGE && e >= n_xa + n_xb) {  // the S/N edge row's y-interface values
+        const int f = (e - n_xa - n_xb) / YC, cl = (e - n_xa - n_xb) % YC, c = i0 - 2 + cl;
+        if (f >= nf || c < 0 || c > X - 1) continue;
+        const T w0 = sh[kYw + cl], wp = sh[kYw + YC + cl], wm = sh[kYw + 2 * YC + cl];
+        const Plane<T> Q{win + f * SR * SC, plane_ptr(A, f, s, k, K, P), j0, i0, Y, X};
+        sh[kYq + f * YC + cl] = y_iface(sh, Q, w0, wp, wm, j0 + et.yrow, et.yrow, c);
+        continue;
+      }
+      if (EDGE && e >= n_xa) {  // a column with a W/E blend
+        const int f = (e - n_xa) / (et.n_xcols * QR);
+        const int m = (e - n_xa) % (et.n_xcols * QR) / QR, rl = (e - n_xa) % QR;
+        if (f >= nf) continue;
+        const int il = et.xcols[m], i = i0 + il;
+        const T* wr = win + f * SR * SC + rl * SC + il + HR;
+        const T qm1 = wr[-1], q0 = wr[0], qm2 = wr[-2], qp1 = wr[1];
+        const T val = T(0.5625) * (qm1 + q0) + T(-0.0625) * (qm2 + qp1);
+        const int r = clampi(j0 - 2 + rl, 0, Y - 1);
+        T w0 = T(0), wp = T(0), wm = T(0);
+        if (il == et.xcol) {
+          w0 = sh[kXw + rl];
+          wp = sh[kXw + QR + rl];
+          wm = sh[kXw + 2 * QR + rl];
+        } else if (sh[kEx + il] != T(0)) {
+          const int w = (s * Y + r) * X1 + i;
+          w0 = A.xw0[w];
+          wp = A.xwp[w];
+          wm = A.xwm[w];
+        }
+        const Plane<T> Q{win + f * SR * SC, plane_ptr(A, f, s, k, K, P), j0, i0, Y, X};
+        sh[kQx + (f * QR + rl) * QC + il] =
+            x_blends(sh, Q, w0, wp, wm, val, qm1, q0, qm2, qp1, r, i, il);
+        continue;
+      }
+      const int rl = e / QC, il = e - (e / QC) * QC;
+      const int i = i0 + il;
+      if (i > X || (EDGE && sh[kXany + il] != T(0))) continue;
+#pragma unroll
+      for (int f = 0; f < NP; ++f) {
+        if (f >= nf) break;
+        // window row rl is plane row clamp(j0-2+rl); column il+2 is i
+        const T* wr = win + f * SR * SC + rl * SC + il + HR;
+        sh[kQx + (f * QR + rl) * QC + il] =
+            T(0.5625) * (wr[-1] + wr[0]) + T(-0.0625) * (wr[-2] + wr[1]);
+      }
+    }
+    __syncthreads();
+
+    // stage B: corner values of interface k into slot cur
+    T* bcur = sh + kBs + cur * NP * BR * BC;
+    for (int e = tid; e < n_b; e += kThreads) {
+      if (EDGE && e >= BR * BC) {  // a cube corner: its value replaces the others
+        const int m = (e - BR * BC) / NP, f = (e - BR * BC) % NP;
+        if (f >= nf) continue;
+        const int jl = et.corner_at[m] / BC, il = et.corner_at[m] % BC;
+        const Plane<T> Q{win + f * SR * SC, plane_ptr(A, f, s, k, K, P), j0, i0, Y, X};
+        bcur[(f * BR + jl) * BC + il] = corner_value(Q, quad, et.corner[m], j0 + jl, i0 + il);
+        continue;
+      }
+      const int jl = e / BC, il = e - (e / BC) * BC;
+      const int j = j0 + jl, i = i0 + il;
+      if (j > Y || i > X) continue;
+      if (EDGE) {
+        bool at_corner = false;
+        for (int m = 0; m < et.n_corners; ++m) at_corner = at_corner || et.corner_at[m] == e;
+        if (at_corner) continue;
+      }
+      const T ey = EDGE ? sh[kEy + jl] : T(0);
+#pragma unroll
+      for (int f = 0; f < NP; ++f) {
+        if (f >= nf) break;
+        const T* qxf = sh + kQx + f * QR * QC + il;
+        T val = T(0.5625) * (qxf[(jl + 1) * QC] + qxf[(jl + 2) * QC]) +
+                T(-0.0625) * (qxf[jl * QC] + qxf[(jl + 3) * QC]);
+        if (EDGE && ey != T(0)) {
+          // along the S/N edge row: 4th-order interpolation of its
+          // y-interface values
+          T ym1, y0, ym2, yp1;
+          const int cm1 = clampi(i - 1, 0, X - 1), c0 = clampi(i, 0, X - 1);
+          const int cm2 = clampi(i - 2, 0, X - 1), cp1 = clampi(i + 1, 0, X - 1);
+          if (jl == et.yrow) {
+            const T* yq = sh + kYq + f * YC;
+            ym1 = yq[cm1 - (i0 - 2)];
+            y0 = yq[c0 - (i0 - 2)];
+            ym2 = yq[cm2 - (i0 - 2)];
+            yp1 = yq[cp1 - (i0 - 2)];
+          } else {
+            const Plane<T> Q{win + f * SR * SC, plane_ptr(A, f, s, k, K, P), j0, i0, Y, X};
+            ym1 = y_iface_global(A.yw0, A.ywp, A.ywm, sh, Q, s, j, jl, cm1);
+            y0 = y_iface_global(A.yw0, A.ywp, A.ywm, sh, Q, s, j, jl, c0);
+            ym2 = y_iface_global(A.yw0, A.ywp, A.ywm, sh, Q, s, j, jl, cm2);
+            yp1 = y_iface_global(A.yw0, A.ywp, A.ywm, sh, Q, s, j, jl, cp1);
+          }
+          const T out_y = T(0.5625) * (ym1 + y0) + T(-0.0625) * (ym2 + yp1);
+          val = val + ey * (out_y - val);
+        }
+        bcur[(f * BR + jl) * BC + il] = val;
+      }
+    }
+    __syncthreads();
+    if (k == kb) continue;
+
+    // stage C: layer kk = k-1 from interfaces kk (slot cur^1) and k (slot cur)
+    const int kk = k - 1;
+    const T* ba = sh + kBs + (cur ^ 1) * NP * BR * BC;
+    const T* bb = bcur;
+#define B_(b, f, jl, il) b[((f) * BR + (jl)) * BC + (il)]
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      const int jl = jl_c + h * (TY / 2), il = il_c;
+      const int j = j0 + jl, i = i0 + il;
+      if (j <= Y && i < X) {  // u point (j, i): corners (j, i) and (j, i+1)
+        const T p1k = B_(ba, 0, jl, il), p1kp = B_(bb, 0, jl, il);
+        const T p2k = B_(ba, 0, jl, il + 1), p2kp = B_(bb, 0, jl, il + 1);
+        const T g1k = B_(ba, 1, jl, il), g1kp = B_(bb, 1, jl, il);
+        const T g2k = B_(ba, 1, jl, il + 1), g2kp = B_(bb, 1, jl, il + 1);
+        const T q1k = B_(ba, 2, jl, il), q1kp = B_(bb, 2, jl, il);
+        const T q2k = B_(ba, 2, jl, il + 1), q2kp = B_(bb, 2, jl, il + 1);
+        const T dp1 = B_(ba, 3, jl, il), dp2 = B_(ba, 3, jl, il + 1);
+        const T dtr = h == 0 ? dtr_u0 : dtr_u1;
+        const T term_h = (g1kp - g2k) * (p2kp - p1k) + (g1k - g2kp) * (p1kp - p2k);
+        const T du_h = dtr * term_h / ((p1kp - p1k) + (p2kp - p2k));
+        const T term_p = (g1kp - g2k) * (q2kp - q1k) + (g1k - g2kp) * (q1kp - q2k);
+        const T du_p = dtr * term_p / (dp1 + dp2);
+        const long long o = (((long long)s * K + kk) * (Y + 1) + j) * X + i;
+        A.u_out[o] = (A.u[o] + du_h) + du_p;
+      }
+      if (j < Y && i <= X) {  // v point (j, i): corners (j, i) and (j+1, i)
+        const T p1k = B_(ba, 0, jl, il), p1kp = B_(bb, 0, jl, il);
+        const T p2k = B_(ba, 0, jl + 1, il), p2kp = B_(bb, 0, jl + 1, il);
+        const T g1k = B_(ba, 1, jl, il), g1kp = B_(bb, 1, jl, il);
+        const T g2k = B_(ba, 1, jl + 1, il), g2kp = B_(bb, 1, jl + 1, il);
+        const T q1k = B_(ba, 2, jl, il), q1kp = B_(bb, 2, jl, il);
+        const T q2k = B_(ba, 2, jl + 1, il), q2kp = B_(bb, 2, jl + 1, il);
+        const T dp1 = B_(ba, 3, jl, il), dp2 = B_(ba, 3, jl + 1, il);
+        const T dtr = h == 0 ? dtr_v0 : dtr_v1;
+        const T term_h = (g1kp - g2k) * (p2kp - p1k) + (g1k - g2kp) * (p1kp - p2k);
+        const T dv_h = dtr * term_h / ((p1kp - p1k) + (p2kp - p2k));
+        const T term_p = (g1kp - g2k) * (q2kp - q1k) + (g1k - g2kp) * (q1kp - q2k);
+        const T dv_p = dtr * term_p / (dp1 + dp2);
+        const long long o = (((long long)s * K + kk) * Y + j) * X1 + i;
+        A.v_out[o] = (A.v[o] + dv_h) + dv_p;
+      }
+    }
+#undef B_
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4) pgrad_kernel(
     Args<T> A, T dt, const int* __restrict__ pos, const int* __restrict__ quad,
-    const int* __restrict__ own, int n_corners, int S, int K, int Y, int X,
-    int tiles_x) {
-  __shared__ T qx_s[4][QR][QC];
-  __shared__ T b_s[2][4][BR][BC];
-  __shared__ int s_corner[kMaxTileCorners];
-  __shared__ int s_ncorner;
+    const int* __restrict__ own, int n_corners, int S, int K, int Y, int X, int tiles_x,
+    int k_chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ EdgeTile et;
+  T* sh = reinterpret_cast<T*>(smem_raw);
 
   const int s = blockIdx.y;
   const int j0 = (blockIdx.x / tiles_x) * TY;
   const int i0 = (blockIdx.x % tiles_x) * TX;
+  const int kb = blockIdx.z * k_chunk;
+  const int ke = kb + k_chunk < K ? kb + k_chunk : K;  // interfaces kb .. ke
   const int tid = threadIdx.x;
-  const long long P = (long long)Y * X;
-  const int X1 = X + 1;
+  const int X1 = X + 1, Y1 = Y + 1;
 
-  // the cube corners this shard owns on the tile's corner points, found
-  // once: most tiles have none, and the corner loop of stage B runs over
-  // this list only
+  // the cube corners this shard owns on the tile's corner points: most
+  // tiles have none
   if (tid == 0) {
     int m = 0;
     for (int c = 0; c < n_corners && m < kMaxTileCorners; ++c) {
       const int cj = pos[2 * c], ci = pos[2 * c + 1];
-      if (own[c * S + s] && cj >= j0 && cj <= j0 + TY && ci >= i0 && ci <= i0 + TX)
-        s_corner[m++] = c;
+      if (own[c * S + s] && cj >= j0 && cj <= j0 + TY && ci >= i0 && ci <= i0 + TX) {
+        et.corner[m] = c;
+        et.corner_at[m] = (cj - j0) * BC + (ci - i0);
+        ++m;
+      }
     }
-    s_ncorner = m;
+    et.n_corners = m;
+  }
+  // the tile's edge vectors, once per block
+  bool flagged = false;
+  if (tid < QC) {
+    const int i = i0 + tid;
+    T ex = T(0), gl = T(0), inw = T(0), ine = T(0);
+    if (i <= X) {
+      ex = A.ew[s * X1 + i] + A.ee[s * X1 + i];
+      gl = A.glx[s * X1 + i];
+      inw = A.ew[s * X1 + (i == 0 ? X : i - 1)];
+      ine = A.ee[s * X1 + (i == X ? 0 : i + 1)];
+    }
+    sh[kEx + tid] = ex;
+    sh[kGlx + tid] = gl;
+    sh[kInw + tid] = inw;
+    sh[kIne + tid] = ine;
+    flagged = ex != T(0) || inw != T(0) || ine != T(0);
+    sh[kXany + tid] = flagged ? T(1) : T(0);
+  } else if (tid >= 64 && tid < 64 + BR) {
+    const int jl = tid - 64, j = j0 + jl;
+    T ey = T(0), gs = T(0), ins = T(0), inn = T(0);
+    if (j <= Y) {
+      ey = A.es[s * Y1 + j] + A.en[s * Y1 + j];
+      gs = A.gsy[s * Y1 + j];
+      ins = A.es[s * Y1 + (j == 0 ? Y : j - 1)];
+      inn = A.en[s * Y1 + (j == Y ? 0 : j + 1)];
+    }
+    sh[kEy + jl] = ey;
+    sh[kGsy + jl] = gs;
+    sh[kIns + jl] = ins;
+    sh[kInn + jl] = inn;
+    flagged = ey != T(0);
+  }
+  const bool edge = __syncthreads_or(flagged) != 0 || et.n_corners > 0;
+  if (!edge) {
+    walk<T, false>(A, sh, et, dt, quad, s, kb, ke, K, Y, X, j0, i0);
+    return;
+  }
+  // the ghost weights of the first W/E edge column and the first S/N edge
+  // row, which are the same on every level
+  if (tid == 0) {
+    et.xcol = -1;
+    et.yrow = -1;
+    et.n_xcols = 0;
+    for (int il = 0; il < QC; ++il)
+      if (sh[kXany + il] != T(0)) et.xcols[et.n_xcols++] = il;
+    for (int il = QC - 1; il >= 0; --il)
+      if (sh[kEx + il] != T(0)) et.xcol = il;
+    for (int jl = BR - 1; jl >= 0; --jl)
+      if (sh[kEy + jl] != T(0)) et.yrow = jl;
   }
   __syncthreads();
-
-  for (int k = 0; k <= K; ++k) {
-    const int nf = k < K ? 4 : 3;  // delp has K levels
-    const T* planes[4] = {A.pk + ((long long)s * (K + 1) + k) * P,
-                          A.gz + ((long long)s * (K + 1) + k) * P,
-                          A.pp + ((long long)s * (K + 1) + k) * P,
-                          A.delp + ((long long)s * K + (k < K ? k : 0)) * P};
-    // stage A: x-interface values on rows j0-2 .. j0+TY+1 (clamped)
-    for (int idx = tid; idx < nf * QR * QC; idx += kThreads) {
-      const int f = idx / (QR * QC);
-      const int rl = (idx / QC) % QR;
-      const int il = idx % QC;
-      const int i = i0 + il;
-      if (i > X) continue;
-      const int r = clampi(j0 - 2 + rl, 0, Y - 1);
-      qx_s[f][rl][il] = x_iface(A, planes[f], s, r, i, Y, X);
-    }
-    __syncthreads();
-    // stage B: corner values of interface k into slot k & 1
-    const int slot = k & 1;
-    for (int idx = tid; idx < nf * BR * BC; idx += kThreads) {
-      const int f = idx / (BR * BC);
-      const int jl = (idx / BC) % BR;
-      const int il = idx % BC;
-      const int j = j0 + jl, i = i0 + il;
-      if (j > Y || i > X) continue;
-      const T* q = planes[f];
-      T val = T(0.5625) * (qx_s[f][jl + 1][il] + qx_s[f][jl + 2][il]) +
-              T(-0.0625) * (qx_s[f][jl][il] + qx_s[f][jl + 3][il]);
-      const T ey = A.es[s * (Y + 1) + j] + A.en[s * (Y + 1) + j];
-      if (ey != T(0)) {
-        // along the S/N edge row: 4th-order interpolation of its
-        // y-interface values
-        const T ym1 = y_iface(A, q, s, j, clampi(i - 1, 0, X - 1), Y, X);
-        const T y0 = y_iface(A, q, s, j, clampi(i, 0, X - 1), Y, X);
-        const T ym2 = y_iface(A, q, s, j, clampi(i - 2, 0, X - 1), Y, X);
-        const T yp1 = y_iface(A, q, s, j, clampi(i + 1, 0, X - 1), Y, X);
-        const T out_y = T(0.5625) * (ym1 + y0) + T(-0.0625) * (ym2 + yp1);
-        val = val + ey * (out_y - val);
-      }
-      for (int m = 0; m < s_ncorner; ++m) {
-        const int c = s_corner[m];
-        if (pos[2 * c] != j || pos[2 * c + 1] != i) continue;
-        // cube corner: mean of the 3 one-sided diagonal quadratic
-        // extrapolations; a corner beyond the last cell row/column reads 0,
-        // other indices wrap
-        T acc = T(0);
-        for (int qd = 0; qd < 3; ++qd) {
-          const int a = quad[c * 6 + 2 * qd], b = quad[c * 6 + 2 * qd + 1];
-          T cell[3];
-          for (int d = 0; d < 3; ++d) {
-            const int aa = a >= 0 ? a + d : a - d;
-            const int bb = b >= 0 ? b + d : b - d;
-            cell[d] = T(0);
-            if (j < Y && i < X) {
-              const int r = ((j + aa) % Y + Y) % Y;
-              const int cl = ((i + bb) % X + X) % X;
-              cell[d] = q[r * X + cl];
-            }
-          }
-          const T ext = (T(1.875) * cell[0] - T(1.25) * cell[1]) + T(0.375) * cell[2];
-          acc = qd == 0 ? ext : acc + ext;
-        }
-        val = acc / T(3);
-      }
-      b_s[slot][f][jl][il] = val;
-    }
-    __syncthreads();
-    if (k == 0) continue;
-    // stage C: layer kk = k-1 from interfaces kk (slot a) and k (slot b)
-    const int kk = k - 1, a = kk & 1, b = k & 1;
-    const int jl = tid / TX, il = tid % TX;
-    const int j = j0 + jl, i = i0 + il;
-    if (j <= Y && i < X) {  // u point (j, i): corners (j, i) and (j, i+1)
-      const T p1k = b_s[a][0][jl][il], p1kp = b_s[b][0][jl][il];
-      const T p2k = b_s[a][0][jl][il + 1], p2kp = b_s[b][0][jl][il + 1];
-      const T g1k = b_s[a][1][jl][il], g1kp = b_s[b][1][jl][il];
-      const T g2k = b_s[a][1][jl][il + 1], g2kp = b_s[b][1][jl][il + 1];
-      const T q1k = b_s[a][2][jl][il], q1kp = b_s[b][2][jl][il];
-      const T q2k = b_s[a][2][jl][il + 1], q2kp = b_s[b][2][jl][il + 1];
-      const T dp1 = b_s[a][3][jl][il], dp2 = b_s[a][3][jl][il + 1];
-      const T dtr = A.rdx[((long long)s * (Y + 1) + j) * X + i] * dt;
-      const T term_h = (g1kp - g2k) * (p2kp - p1k) + (g1k - g2kp) * (p1kp - p2k);
-      const T du_h = dtr * term_h / ((p1kp - p1k) + (p2kp - p2k));
-      const T term_p = (g1kp - g2k) * (q2kp - q1k) + (g1k - g2kp) * (q1kp - q2k);
-      const T du_p = dtr * term_p / (dp1 + dp2);
-      const long long o = (((long long)s * K + kk) * (Y + 1) + j) * X + i;
-      A.u_out[o] = (A.u[o] + du_h) + du_p;
-    }
-    if (j < Y && i <= X) {  // v point (j, i): corners (j, i) and (j+1, i)
-      const T p1k = b_s[a][0][jl][il], p1kp = b_s[b][0][jl][il];
-      const T p2k = b_s[a][0][jl + 1][il], p2kp = b_s[b][0][jl + 1][il];
-      const T g1k = b_s[a][1][jl][il], g1kp = b_s[b][1][jl][il];
-      const T g2k = b_s[a][1][jl + 1][il], g2kp = b_s[b][1][jl + 1][il];
-      const T q1k = b_s[a][2][jl][il], q1kp = b_s[b][2][jl][il];
-      const T q2k = b_s[a][2][jl + 1][il], q2kp = b_s[b][2][jl + 1][il];
-      const T dp1 = b_s[a][3][jl][il], dp2 = b_s[a][3][jl + 1][il];
-      const T dtr = A.rdy[((long long)s * Y + j) * X1 + i] * dt;
-      const T term_h = (g1kp - g2k) * (p2kp - p1k) + (g1k - g2kp) * (p1kp - p2k);
-      const T dv_h = dtr * term_h / ((p1kp - p1k) + (p2kp - p2k));
-      const T term_p = (g1kp - g2k) * (q2kp - q1k) + (g1k - g2kp) * (q1kp - q2k);
-      const T dv_p = dtr * term_p / (dp1 + dp2);
-      const long long o = (((long long)s * K + kk) * Y + j) * X1 + i;
-      A.v_out[o] = (A.v[o] + dv_h) + dv_p;
+  if (et.xcol >= 0 && tid < QR) {
+    const int r = clampi(j0 - 2 + tid, 0, Y - 1);
+    const int w = (s * Y + r) * X1 + i0 + et.xcol;
+    sh[kXw + tid] = A.xw0[w];
+    sh[kXw + QR + tid] = A.xwp[w];
+    sh[kXw + 2 * QR + tid] = A.xwm[w];
+  }
+  if (et.yrow >= 0 && tid >= 64 && tid < 64 + YC) {
+    const int cl = tid - 64, c = i0 - 2 + cl;
+    if (c >= 0 && c < X) {
+      const int w = (s * Y1 + j0 + et.yrow) * X + c;
+      sh[kYw + cl] = A.yw0[w];
+      sh[kYw + YC + cl] = A.ywp[w];
+      sh[kYw + 2 * YC + cl] = A.ywm[w];
     }
   }
+  __syncthreads();
+  walk<T, true>(A, sh, et, dt, quad, s, kb, ke, K, Y, X, j0, i0);
 }
 
 template <typename T>
@@ -309,9 +608,40 @@ int launch(const void* const* p, double dt, const int* pos, const int* quad,
   A.v_out = (T*)p[21];
   const int tiles_x = (X + 1 + TX - 1) / TX;
   const int tiles_y = (Y + 1 + TY - 1) / TY;
-  dim3 grid(tiles_x * tiles_y, S);
-  pgrad_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      A, (T)dt, pos, quad, own, n_corners, S, K, Y, X, tiles_x);
+  const size_t smem = sizeof(T) * (size_t)kValues;
+  auto kern = pgrad_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  // chunks of levels: the fewest rounds of the card's block slots times the
+  // interfaces a block forms (its chunk's layers and one more)
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long tiles = (long long)tiles_x * tiles_y * S;
+  int n_chunks = 1;
+  long long best = -1;
+  for (int nc = 1; nc <= (K < 32 ? K : 32); ++nc) {
+    const int kc = (K + nc - 1) / nc;
+    const long long chunks = (K + kc - 1) / kc;
+    const long long cost = ((tiles * chunks + slots - 1) / slots) * (kc + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      n_chunks = (int)chunks;
+    }
+  }
+  const int k_chunk = (K + n_chunks - 1) / n_chunks;
+  dim3 grid(tiles_x * tiles_y, S, n_chunks);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      A, (T)dt, pos, quad, own, n_corners, S, K, Y, X, tiles_x, k_chunk);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Lagrangian -> Eulerian vertical remap, one thread per column.
+// Lagrangian -> Eulerian vertical remap: a block per tile of columns, the
+// levels spread over the block's threads.
 //
 // Replaces pace_tpu/ops/remap_pallas.py `_remap_kernel` (pallas_call at
 // :222). From layer means q (L, K, P) on source interfaces pe1 and target
@@ -27,18 +28,41 @@
 //
 // Bound on an H100: bytes. q and the two pressure columns in, the result out:
 // about 318 planes, 0.30 GB for one C192 npz=79 f32 field (0.09 ms at
-// 3.35 TB/s); a nine-tracer block reads the columns once per tracer in this
-// design, but the bound counts them once: about 1582 planes, 1.49 GB, 0.44 ms.
-// Design: thread per column (x fastest, so a warp's loads at one level are
-// one line); the column's q (then Q1), pe1, a_l, d_a and a6 live in shared
-// memory as [level][thread], 5K+1 values a thread (101 KB in f32 at K=79
-// with 64 threads); the kernel is templated on the kord class and its sign.
+// 3.35 TB/s); a nine-tracer block, with the columns counted once, about 1582
+// planes, 1.49 GB, 0.44 ms.
+// Design: a block owns TC adjacent columns (32 in f32, 16 in f64: 128-byte
+// rows) of one group of G fields that share their pressure columns (G = 9
+// for the tracer block, 1 for a field) and 256 threads, blockDim (TC, 256 /
+// TC): threadIdx.x is the column, threadIdx.y walks the levels. Every array
+// lives in shared memory as [level][column], so each warp reads and writes
+// whole rows and shared memory scales with the tile's columns, not with the
+// threads; the columns arrive by cp.async (16-byte pieces where the rows are
+// 16-byte aligned). Once per group the block fetches pe1, pe2 and the first
+// field's q together and finds each target interface's source cell idx (in
+// parallel over target and column); the G fields reuse pe1, pe2 and idx.
+// Per field: q with two ghost levels at each end (the rolls' wrapped values,
+// so that stencils read fixed offsets); the running integral Q1 by one
+// thread per column in the plain version's order (a tree-ordered scan would
+// move the thin layers' differences); then the target means in parallel,
+// each thread over a contiguous run of targets, carrying the integral at the
+// run's previous interface: for each target the PPM coefficients of its
+// cell are formed from q at idx-2 .. idx+2 alone (interface values,
+// one-sided ends, constraint), so no coefficient is kept in shared memory.
+// In f32 at K = 79 a tile holds 4 K values and K indices a column, 46 KB,
+// and 57-64 registers a thread: four blocks, 1024 threads, an SM.
+// What holds it (NVIDIA H100 80GB HBM3, C192 npz=79 f32): instruction issue
+// of the per-target reconstruction (three true divisions and the kord
+// class's limiters a target) and the sequential Q1, which leaves one warp of
+// eight busy; it moves its bound's bytes at about a quarter of the card's
+// memory rate (tools/torch_kernel_ab.py, PERF.md). The kernel is templated
+// on the kord class and its sign.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int D_OFFSET = 5;
+constexpr int kThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ T vmin(T a, T b) { return a < b ? a : b; }
@@ -89,6 +113,27 @@ __device__ __forceinline__ T vertex_min(T bl, T br, T al) {
   return has_vertex ? pv : al;
 }
 
+// _limited_slope of ops/ppm.py at the middle of three cells
+template <typename T>
+__device__ __forceinline__ T limited_slope(T qm, T q0, T qp) {
+  const T dm = T(0.5) * (qp - qm);
+  const T dq_r = qp - q0, dq_l = q0 - qm;
+  const T lim = vmin(vabs(dm), T(2) * vmin(vabs(dq_r), vabs(dq_l)));
+  const T sgn = dm > T(0) ? T(1) : (dm < T(0) ? T(-1) : T(0));
+  return dq_r * dq_l > T(0) ? sgn * lim : T(0);
+}
+
+// the unlimited cubic interface value between cells qm1 and q0, clamped to
+// its stencil's range widened by that range (_al_unlimited and the guard)
+template <typename T>
+__device__ __forceinline__ T clamped_cubic(T qm2, T qm1, T q0, T qp1) {
+  const T al = T(7.0 / 12.0) * (qm1 + q0) - T(1.0 / 12.0) * (qm2 + qp1);
+  const T lo = vmin(vmin(q0, qm1), vmin(qm2, qp1));
+  const T hi = vmax(vmax(q0, qm1), vmax(qm2, qp1));
+  const T r = hi - lo;
+  return vclamp(al, lo - r, hi + r);
+}
+
 // _positive_limit of ops/ppm.py
 template <typename T>
 __device__ __forceinline__ void positive(T q, T& bl, T& br) {
@@ -104,186 +149,281 @@ __device__ __forceinline__ void positive(T q, T& bl, T& br) {
   br = br1;
 }
 
+// shared-memory bytes of a tile of tc columns: q with two ghost levels at
+// each end (K + 4), Q1 (K), pe1 (K + 1), pe2 (K2), then idx (K2)
+template <typename T>
+size_t tile_bytes(int tc, int K, int K2) {
+  const size_t vals = (size_t)(K + 4) + K + (K + 1) + K2;
+  return tc * (vals * sizeof(T) + (size_t)K2 * sizeof(unsigned short));
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)));
+}
+// 16 bytes, past L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// rows [0, n) of a [level][column] tile array at dst (row r at dst + r TC)
+// from src (level r at src + r P), the tile's first nc columns; whole
+// 16-byte pieces where vec (P and the arrays 16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int n, int TC, int nc, int P,
+                                          bool vec) {
+  const int NT = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  constexpr int V = 16 / sizeof(T);
+  const int pieces = vec ? nc / V : 0;  // per row
+  for (int e = tid; e < n * pieces; e += NT) {
+    const int r = e / pieces, cv = (e - r * pieces) * V;
+    cp_async16(dst + r * TC + cv, src + (long long)r * P + cv);
+  }
+  const int rest = nc - pieces * V;
+  for (int e = tid; e < n * rest; e += NT) {
+    const int r = e / rest, cc = pieces * V + (e - r * rest);
+    cp_async(dst + r * TC + cc, src + (long long)r * P + cc);
+  }
+}
+
+// wait for this thread's copies, then make every thread's visible
+__device__ __forceinline__ void cp_async_join() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
+
+// The PPM coefficients (a_l, d_a, a6) of cell k of one column, from q at
+// k-2 .. k+2 alone (qk points at level k of a [level][column] array whose
+// stride between levels is TC and which holds the two wrapped ghost levels
+// at each end): the interface values at k and k+1, bl/br with the one-sided
+// column ends, the constraint of the kord class (vertical_reconstruction)
 template <typename T, int CLS, bool NEG>
-__global__ void __launch_bounds__(64) remap_kernel(
-    const T* __restrict__ q, const T* __restrict__ pe1, const T* __restrict__ pe2,
-    T* __restrict__ out, long long L, int rep1, int rep2, int K, int K2, int P) {
-  extern __shared__ unsigned char smem_raw[];
-  const int NT = blockDim.x;
-  const int t = threadIdx.x;
-  T* sq = reinterpret_cast<T*>(smem_raw);  // q, then Q1 at the cell tops
-  T* spe = sq + K * NT;                    // pe1, K+1 levels
-  T* sal = spe + (K + 1) * NT;             // interface values, then a_l
-  T* sa = sal + K * NT;                    // slopes, then bl, then d_a
-  T* sb = sa + K * NT;                     // br, then a6
-  const long long col = (long long)blockIdx.x * NT + t;
-  if (col >= L * P) return;
-  const long long l = col / P;
-  const int p = (int)(col - l * P);
-  const T* qc = q + l * K * P + p;
-  const T* p1 = pe1 + (l / rep1) * (long long)(K + 1) * P + p;
-  const T* p2 = pe2 + (l / rep2) * (long long)K2 * P + p;
-  T* oc = out + l * (long long)(K2 - 1) * P + p;
-#define SH(a, k) a[(k) * NT + t]
-  // k wrapped into the column, as the plain version's rolls wrap; every
-  // index here is within one column length of it, so no division is needed
-  // (columns of fewer than 3 cells take the modulo)
-  auto w = [K](int k) {
-    return K >= 3 ? (k < 0 ? k + K : (k >= K ? k - K : k)) : ((k % K) + K) % K;
-  };
-
-  for (int k = 0; k < K; ++k) SH(sq, k) = qc[(long long)k * P];
-  for (int k = 0; k <= K; ++k) SH(spe, k) = p1[(long long)k * P];
-
-  // interface values al[k] (interface above cell k)
+__device__ __forceinline__ void coefficients(const T* qk, const T* q0c, int k, int K, int TC,
+                                             T& a_l, T& d_a, T& a6) {
+  const T qa = qk[-2 * TC], qb = qk[-TC], q0 = qk[0], qd = qk[TC], qe = qk[2 * TC];
+  // interface values above cells k and k+1
+  T al_k, al_k1;
   if (CLS <= 8) {
-    for (int k = 0; k < K; ++k) {  // limited slopes (_limited_slope)
-      const T qp = SH(sq, w(k + 1)), qm = SH(sq, w(k - 1)), q0 = SH(sq, k);
-      const T dm = T(0.5) * (qp - qm);
-      const T dq_r = qp - q0, dq_l = q0 - qm;
-      const T lim = vmin(vabs(dm), T(2) * vmin(vabs(dq_r), vabs(dq_l)));
-      const T sgn = dm > T(0) ? T(1) : (dm < T(0) ? T(-1) : T(0));
-      SH(sa, k) = dq_r * dq_l > T(0) ? sgn * lim : T(0);
-    }
-    for (int k = 0; k < K; ++k) {
-      const int km = w(k - 1);
-      SH(sal, k) = T(0.5) * (SH(sq, km) + SH(sq, k)) + (SH(sa, km) - SH(sa, k)) / T(6);
-    }
+    const T sb_ = limited_slope(qa, qb, q0), s0 = limited_slope(qb, q0, qd);
+    const T sd = limited_slope(q0, qd, qe);
+    al_k = T(0.5) * (qb + q0) + (sb_ - s0) / T(6);
+    al_k1 = T(0.5) * (q0 + qd) + (s0 - sd) / T(6);
   } else {
-    for (int k = 0; k < K; ++k) {
-      const T q0 = SH(sq, k), qm1 = SH(sq, w(k - 1)), qm2 = SH(sq, w(k - 2));
-      const T qp1 = SH(sq, w(k + 1));
-      const T al = T(7.0 / 12.0) * (qm1 + q0) - T(1.0 / 12.0) * (qm2 + qp1);
-      const T lo = vmin(vmin(q0, qm1), vmin(qm2, qp1));
-      const T hi = vmax(vmax(q0, qm1), vmax(qm2, qp1));
-      const T r = hi - lo;
-      SH(sal, k) = vclamp(al, lo - r, hi + r);
-    }
+    al_k = clamped_cubic(qa, qb, q0, qd);
+    al_k1 = clamped_cubic(qb, q0, qd, qe);
   }
-  for (int k = 0; k < K; ++k) {
-    const T q0 = SH(sq, k);
-    SH(sa, k) = SH(sal, k) - q0;        // bl
-    SH(sb, k) = SH(sal, w(k + 1)) - q0;  // br
-  }
-  // one-sided column ends
+  T bl = al_k - q0;
+  T br = al_k1 - q0;
+  // the one-sided column ends
   if (K < 3) {
-    for (int k = 0; k < K; ++k) {
-      SH(sa, k) = T(0);
-      SH(sb, k) = T(0);
-    }
-  } else {
-    const T q0 = SH(sq, 0), q1 = SH(sq, 1), q2 = SH(sq, 2);
-    const T qm1 = SH(sq, K - 1), qm2 = SH(sq, K - 2), qm3 = SH(sq, K - 3);
-    T al0 = ((T(11) * q0 - T(7) * q1) + T(2) * q2) / T(6);
-    T al1 = ((T(2) * q0 + T(5) * q1) - q2) / T(6);
+    bl = T(0);
+    br = T(0);
+  } else if (k <= 1 || k >= K - 2) {
+    const T c0 = q0c[0], c1 = q0c[TC], c2 = q0c[2 * TC];
+    const T qm1 = q0c[(K - 1) * TC], qm2 = q0c[(K - 2) * TC], qm3 = q0c[(K - 3) * TC];
+    T al0 = ((T(11) * c0 - T(7) * c1) + T(2) * c2) / T(6);
+    T al1 = ((T(2) * c0 + T(5) * c1) - c2) / T(6);
     T alK = ((T(11) * qm1 - T(7) * qm2) + T(2) * qm3) / T(6);
     T alK1 = ((T(2) * qm1 + T(5) * qm2) - qm3) / T(6);
     if (CLS <= 8) {
-      const T lo01 = vmin(q0, q1), hi01 = vmax(q0, q1);
+      const T lo01 = vmin(c0, c1), hi01 = vmax(c0, c1);
       const T loK = vmin(qm1, qm2), hiK = vmax(qm1, qm2);
       al0 = vclamp(al0, lo01, hi01);
       al1 = vclamp(al1, lo01, hi01);
       alK = vclamp(alK, loK, hiK);
       alK1 = vclamp(alK1, loK, hiK);
     }
-    SH(sa, 0) = al0 - q0;
-    SH(sa, 1) = al1 - q1;
-    SH(sa, K - 1) = alK1 - qm1;
-    SH(sb, 0) = al1 - q0;
-    SH(sb, K - 2) = alK1 - qm2;
-    SH(sb, K - 1) = alK - qm1;
+    if (k == 0) bl = al0 - c0;
+    else if (k == 1) bl = al1 - c1;
+    else if (k == K - 1) bl = alK1 - qm1;
+    if (k == 0) br = al1 - c0;
+    else if (k == K - 2) br = alK1 - qm2;
+    else if (k == K - 1) br = alK - qm1;
   }
-  // the constraint of the kord class, then the coefficients
-  for (int k = 0; k < K; ++k) {
-    const T q0 = SH(sq, k);
-    T bl = SH(sa, k), br = SH(sb, k);
-    if (CLS <= 6) {
+  // the constraint of the kord class
+  if (CLS <= 6) {
+    monotone(bl, br);
+  } else {
+    bool sel;
+    if (CLS == 7) {
+      sel = k <= 1 || k >= K - 2;
+    } else {  // noise mask (_noise_mask) at k-1, k, k+1
+      const T dqm0 = qb - qa, dqp0 = q0 - qb;
+      const T dqm1 = q0 - qb, dqp1 = qd - q0;
+      const T dqm2 = qd - q0, dqp2 = qe - qd;
+      const bool ext0 = dqm0 * dqp0 <= T(0), ext1 = dqm1 * dqp1 <= T(0);
+      const bool ext2 = dqm2 * dqp2 <= T(0);
+      const T d20 = dqp0 - dqm0, d21 = dqp1 - dqm1, d22 = dqp2 - dqm2;
+      const bool smooth = (d21 * d20 > T(0)) && (d21 * d22 > T(0));
+      sel = ext1 && !smooth;
+      if (CLS >= 10) sel = sel && (ext0 || ext2);
+      sel = sel || k <= 1 || k >= K - 2;
+    }
+    if (sel)
       monotone(bl, br);
-    } else {
-      bool sel;
-      if (CLS == 7) {
-        sel = k <= 1 || k >= K - 2;
-      } else {  // noise mask (_noise_mask)
-        T d2[3];
-        bool ext[3];
-        for (int d = 0; d < 3; ++d) {
-          const int m = w(k - 1 + d);
-          const T qc0 = SH(sq, m);
-          const T dqm = qc0 - SH(sq, w(m - 1));
-          const T dqp = SH(sq, w(m + 1)) - qc0;
-          ext[d] = dqm * dqp <= T(0);
-          d2[d] = dqp - dqm;
+    else
+      overshoot(bl, br);
+  }
+  if (NEG) positive(q0, bl, br);
+  a_l = q0 + bl;
+  d_a = br - bl;
+  a6 = T(-3) * (bl + br);
+}
+
+template <typename T, int CLS, bool NEG>
+__global__ void __launch_bounds__(kThreads) remap_kernel(
+    const T* __restrict__ q, const T* __restrict__ pe1, const T* __restrict__ pe2,
+    T* __restrict__ out, int G, int rep1, int rep2, int K, int K2, int P, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int TC = blockDim.x, NJ = blockDim.y;
+  const int c = threadIdx.x, ty = threadIdx.y;
+  const int p0 = blockIdx.x * TC;
+  const int nc = P - p0 < TC ? P - p0 : TC;
+  const bool active = c < nc;  // the ragged last tile
+  const long long l0 = (long long)blockIdx.y * G;
+  // [level][column] arrays; sq's level k is row k + 2 (rows 0, 1 and K+2,
+  // K+3 hold the levels -2, -1, K, K+1 wrapped into the column, as the
+  // plain version's rolls wrap)
+  T* sq = reinterpret_cast<T*>(smem_raw);  // q
+  T* sQ1 = sq + (K + 4) * TC;              // the running integral at the cell tops
+  T* spe = sQ1 + K * TC;                   // pe1
+  T* spe2 = spe + (K + 1) * TC;            // pe2
+  unsigned short* sidx = reinterpret_cast<unsigned short*>(spe2 + K2 * TC);
+#define SH(a, k) a[(k) * TC + c]
+#define SQ(k) sq[((k) + 2) * TC + c]
+  // k wrapped into the column (within one column length of it, so no
+  // division is needed; columns of fewer than 3 cells take the modulo)
+  auto w = [K](int k) {
+    return K >= 3 ? (k < 0 ? k + K : (k >= K ? k - K : k)) : ((k % K) + K) % K;
+  };
+  // field l's q, with the ghost levels, into sq
+  auto load_q = [&](long long l) {
+    const T* ql = q + l * K * P + p0;
+    load_rows(sq + 2 * TC, ql, K, TC, nc, P, vec);
+    if (active && ty < 4) {
+      const int kg = ty < 2 ? ty - 2 : K + ty - 2;  // -2, -1, K, K+1
+      cp_async(&SQ(kg), ql + c + (long long)w(kg) * P);
+    }
+  };
+
+  // --- once per group: the pressure columns and each target's cell; the
+  //     first field's q is fetched with them
+  {
+    load_rows(spe, pe1 + (l0 / rep1) * (long long)(K + 1) * P + p0, K + 1, TC, nc, P, vec);
+    load_rows(spe2, pe2 + (l0 / rep2) * (long long)K2 * P + p0, K2, TC, nc, P, vec);
+    load_q(l0);
+    cp_async_join();
+    if (active)
+      for (int j = ty; j < K2; j += NJ) {
+        const T pj = SH(spe2, j);
+        const int base = j - 1 < 0 ? 0 : (j - 1 > K - 1 ? K - 1 : j - 1);
+        int m_loc = 0;
+#pragma unroll
+        for (int o = -D_OFFSET; o <= D_OFFSET; ++o) {
+          const int kk = base + o;
+          if (kk < 0 || kk > K - 1) continue;
+          const int cmp = SH(spe, kk + 1) <= pj ? 1 : 0;
+          m_loc += o < 0 ? cmp - 1 : cmp;
         }
-        const bool smooth = (d2[1] * d2[0] > T(0)) && (d2[1] * d2[2] > T(0));
-        sel = ext[1] && !smooth;
-        if (CLS >= 10) sel = sel && (ext[0] || ext[2]);
-        sel = sel || k <= 1 || k >= K - 2;
+        const int off = m_loc < -D_OFFSET ? -D_OFFSET : (m_loc > D_OFFSET ? D_OFFSET : m_loc);
+        const int idx = j - 1 + off;
+        SH(sidx, j) = (unsigned short)(idx < 0 ? 0 : (idx > K - 1 ? K - 1 : idx));
       }
-      T blm = bl, brm = br, blo = bl, bro = br;
-      monotone(blm, brm);
-      overshoot(blo, bro);
-      bl = sel ? blm : blo;
-      br = sel ? brm : bro;
-    }
-    if (NEG) positive(q0, bl, br);
-    SH(sal, k) = q0 + bl;
-    SH(sa, k) = br - bl;
-    SH(sb, k) = T(-3) * (bl + br);
+    __syncthreads();
   }
-  // running integral at the cell tops
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const T qdp = SH(sq, k) * (SH(spe, k + 1) - SH(spe, k));
-    SH(sq, k) = acc;
-    acc = k == 0 ? qdp : acc + qdp;
-  }
-  // integrals at the target interfaces and their differences
-  T q_prev = T(0), p_prev = T(0);
-  for (int j = 0; j < K2; ++j) {
-    const T pj = p2[(long long)j * P];
-    const int base = j - 1 < 0 ? 0 : (j - 1 > K - 1 ? K - 1 : j - 1);
-    int m_loc = 0;
-    for (int o = -D_OFFSET; o <= D_OFFSET; ++o) {
-      const int kk = base + o;
-      if (kk < 0 || kk > K - 1) continue;
-      const int cmp = SH(spe, kk + 1) <= pj ? 1 : 0;
-      m_loc += o < 0 ? cmp - 1 : cmp;
-    }
-    const int off = m_loc < -D_OFFSET ? -D_OFFSET : (m_loc > D_OFFSET ? D_OFFSET : m_loc);
-    int idx = j - 1 + off;
-    idx = idx < 0 ? 0 : (idx > K - 1 ? K - 1 : idx);
+
+  // each thread's contiguous run of targets in the last phase
+  const int per = (K2 - 1 + NJ - 1) / NJ;
+  const int j_lo = 1 + ty * per;
+  const int j_hi = j_lo + per < K2 ? j_lo + per : K2;
+  auto q_int = [&](int j) {  // the integral at target interface j
+    const int idx = SH(sidx, j);
+    T a_l, d_a, a6;
+    coefficients<T, CLS, NEG>(&SQ(idx), &SQ(0), idx, K, TC, a_l, d_a, a6);
     const T pe1_m = SH(spe, idx);
     const T dp1_m = SH(spe, idx + 1) - pe1_m;
-    const T tt = vclamp((pj - pe1_m) / dp1_m, T(0), T(1));
+    const T tt = vclamp((SH(spe2, j) - pe1_m) / dp1_m, T(0), T(1));
     const T t2 = tt * tt;
     const T t3 = t2 * tt;
-    const T f = (SH(sal, idx) * tt + (T(0.5) * SH(sa, idx)) * t2) +
-                SH(sb, idx) * (T(0.5) * t2 - t3 / T(3));
-    const T q_int = SH(sq, idx) + dp1_m * f;
-    if (j > 0) oc[(long long)(j - 1) * P] = (q_int - q_prev) / (pj - p_prev);
-    q_prev = q_int;
-    p_prev = pj;
+    const T f = (a_l * tt + (T(0.5) * d_a) * t2) + a6 * (T(0.5) * t2 - t3 / T(3));
+    return SH(sQ1, idx) + dp1_m * f;
+  };
+
+  for (int g = 0; g < G; ++g) {
+    const long long l = l0 + g;
+    T* oc = out + l * (long long)(K2 - 1) * P + p0 + c;
+    if (g > 0) {
+      load_q(l);
+      cp_async_join();
+    }
+
+    // running integral at the cell tops, in sequence
+    if (active && ty == 0) {
+      T acc = T(0);
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) {
+        const T qdp = SQ(k) * (SH(spe, k + 1) - SH(spe, k));
+        SH(sQ1, k) = acc;
+        acc = k == 0 ? qdp : acc + qdp;
+      }
+    }
+    __syncthreads();
+
+    // each target cell's reconstruction and integral, and the differences
+    // of the integrals over the target thicknesses
+    if (active && j_lo < j_hi) {
+      T q_prev = q_int(j_lo - 1);
+      for (int j = j_lo; j < j_hi; ++j) {
+        const T qi = q_int(j);
+        oc[(long long)(j - 1) * P] = (qi - q_prev) / (SH(spe2, j) - SH(spe2, j - 1));
+        q_prev = qi;
+      }
+    }
+    __syncthreads();  // the next field overwrites sq
   }
+#undef SQ
 #undef SH
+}
+
+int gcd(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
 }
 
 template <typename T, int CLS, bool NEG>
 int launch_one(const void* q, const void* pe1, const void* pe2, void* out, long long L,
                int rep1, int rep2, int K, int K2, int P, void* stream) {
-  int nt = 64;
-  size_t smem = sizeof(T) * (size_t)(5 * K + 1) * nt;
-  while (smem > 227 * 1024 && nt > 32) {
-    nt /= 2;
-    smem = sizeof(T) * (size_t)(5 * K + 1) * nt;
-  }
+  if (K > 65535) return -1;
+  int tc = sizeof(T) == 4 ? 32 : 16;
+  while (tile_bytes<T>(tc, K, K2) > 227 * 1024 && tc > 1) tc /= 2;
+  const size_t smem = tile_bytes<T>(tc, K, K2);
+  if (smem > 227 * 1024) return -1;
+  // fields that share both pressure columns: a group, one block row
+  const int G = gcd(rep1, rep2);
+  const long long groups = L / G;
+  if (groups > 65535) return -1;
   auto kern = remap_kernel<T, CLS, NEG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long cols = L * P;
-  const unsigned blocks = (unsigned)((cols + nt - 1) / nt);
-  kern<<<blocks, nt, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)pe1, (const T*)pe2, (T*)out, L, rep1, rep2, K, K2, P);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((P + tc - 1) / tc), (unsigned)groups);
+  const dim3 block(tc, kThreads / tc);
+  // whole 16-byte pieces where every level row starts 16-byte aligned
+  const bool vec = (P * sizeof(T)) % 16 == 0 && ((size_t)q | (size_t)pe1 | (size_t)pe2) % 16 == 0;
+  kern<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)pe1, (const T*)pe2, (T*)out, G, rep1, rep2, K, K2, P, vec);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@ picks one of the two by where its operands lie (ops/_dispatch.py).
 The kernel repeats ``ops.pgrad.a2b_ord4`` op for op on every corner whose
 4x4 stencil lies inside the array, blends included, and sums ``(u + du_h) +
 du_p`` as the plain version does; it reads the grid's edge flags, ghost
-weights and corner table as they are, so any shard layout works.
+weights and corner table as they are, so any shard layout works. Each block
+classifies its tile once; :func:`tile_classes` states the rule.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ GRID_FIELDS = (
 )
 _X_LINES = ("edge_w_iface", "edge_e_iface", "a2b_ghost_left_x")
 
+#: the kernel's tile of u/v points, rows by columns (``TY``, ``TX`` of
+#: csrc/pgrad.cu); a tile's corner points are rows j0 .. j0+TY and columns
+#: i0 .. i0+TX
+TILE = (16, 32)
+
 
 def _fn(dtype):
     fn = getattr(_build.library("pgrad"), _FN[dtype])
@@ -58,6 +64,34 @@ def grid_operands(grid, S: int, Y: int, X: int):
             shape = (S, 1, X + 1) if name in _X_LINES else (S, Y + 1, 1)
         out.append((name, getattr(grid, name), shape))
     return out
+
+
+def tile_classes(grid, S: int, Y: int, X: int):
+    """The tiles that take the kernel's edge path: ``(S, tiles_y, tiles_x)``
+    booleans, True where the tile's corner points meet a W/E tile-edge line
+    or the first line inside one (the one-sided cubic), an S/N tile-edge
+    row, or a cube corner of the shard. Every other tile takes the path with
+    no blends; this is the kernel's own test, kept here so that a run can
+    find the seams between the two."""
+    TY, TX = TILE
+    ny, nx = -(-(Y + 1) // TY), -(-(X + 1) // TX)
+    ew, ee = (getattr(grid, n).reshape(S, X + 1) for n in ("edge_w_iface", "edge_e_iface"))
+    es, en = (getattr(grid, n).reshape(S, Y + 1) for n in ("edge_s_iface", "edge_n_iface"))
+    x_line = ((ew + ee) != 0) | (torch.roll(ew, 1, -1) != 0) | (torch.roll(ee, -1, -1) != 0)
+    y_line = (es + en) != 0
+    edge = torch.zeros((S, ny, nx), dtype=torch.bool, device=ew.device)
+    for a in range(ny):
+        edge[:, a, :] |= y_line[:, a * TY:a * TY + TY + 1].any(-1)[:, None]
+    for b in range(nx):
+        edge[:, :, b] |= x_line[:, b * TX:b * TX + TX + 1].any(-1)[:, None]
+    for _kind, jj, ii, own in grid.corner_table:
+        for s in range(S):
+            for a in range(ny):
+                for b in range(nx):
+                    if (own[s] and a * TY <= jj <= a * TY + TY
+                            and b * TX <= ii <= b * TX + TX):
+                        edge[s, a, b] = True
+    return edge
 
 
 def nh_p_grad_cuda(u, v, pk, gz, pp, delp, grid, dt: float):

@@ -10,7 +10,9 @@ its launches in :data:`LAUNCHES`. ``ops.remapping.remap_field_best`` and
 The pressure columns may be shared by several leading entries of ``q`` (a
 tracer block): their leading dimensions equal ``q``'s up to some axis and
 are 1 after it, and the kernel reads them through ``l // rep``, never
-broadcast in memory.
+broadcast in memory. The fields that share both columns are one group: the
+kernel reads the columns and finds each target interface's source cell once
+for the whole group.
 """
 
 from __future__ import annotations

@@ -140,3 +140,25 @@ def test_kernel_grid_operands_have_the_kernel_s_shapes(grids):
     S, Y, X = tgrid.area.shape
     for name, t, shape in pgrad_kernel.grid_operands(tgrid, S, Y, X):
         assert tuple(t.shape) == shape, name
+
+
+def test_kernel_interior_tiles_need_no_blends():
+    """The tiles that the kernel sends down its path without blends
+    (``tile_classes`` False) get the same corner values from ``a2b_ord4``
+    with the grid as from the interpolation alone, and at C96 such tiles
+    and edge tiles both occur on every shard."""
+    from pace_tpu_torch.grid.generation import GridSpec, MetricTerms
+
+    n = 96
+    mt = MetricTerms.generate(GridSpec(n_tile=n, npz=3, layout=(1, 1)))
+    grid = GridData.from_metric_terms(mt, device="cpu", dtype=torch.float64)
+    S, Y, X = grid.area.shape
+    q = torch.from_numpy(np.random.RandomState(7).rand(S, 2, Y, X))
+    full, plain = pgrad.a2b_ord4(q, grid), pgrad.a2b_ord4(q, None)
+    edge = pgrad_kernel.tile_classes(grid, S, Y, X)
+    TY, TX = pgrad_kernel.TILE
+    assert edge.shape == (S, -(-(Y + 1) // TY), -(-(X + 1) // TX))
+    assert bool(edge.any(-1).any(-1).all()) and bool((~edge).any(-1).any(-1).all())
+    for s, a, b in (~edge).nonzero().tolist():
+        tile = (s, slice(None), slice(a * TY, a * TY + TY + 1), slice(b * TX, b * TX + TX + 1))
+        assert torch.equal(full[tile], plain[tile])

@@ -1,0 +1,242 @@
+#!/usr/bin/env python3
+"""Time an earlier revision's remap and nh_p_grad kernels against the
+current ones on one NVIDIA card, in turns, at the dycore step's shapes.
+
+Run from the repository root on a machine with a card and ``nvcc``::
+
+    mkdir -p build/prev
+    git show <rev>:pace_tpu_torch/csrc/remap.cu > build/prev/remap.cu
+    git show <rev>:pace_tpu_torch/csrc/pgrad.cu > build/prev/pgrad.cu
+    python3 tools/torch_kernel_ab.py --prev build/prev
+
+The earlier sources must export the C functions the current wrappers call
+(``pace_remap_f32`` ..., ``pace_pgrad_f32`` ...). Both revisions are built
+with ``_build.NVCC_FLAGS`` and their ``-Xptxas -v`` lines printed (the
+earlier ones into ``build/kernels/prev``, which ``.gitignore`` lists). Each
+kernel then runs through its own wrapper on the same inputs, C192 npz=79 f32
+by default, in the order earlier, current, current, earlier: CUDA-event
+means of 20 launches (the tracer block 5), the bytes of the kernel's bound
+over its time, and whether the two revisions give the same bits. The pgrad
+inputs are one acoustic substep's (``demos/acoustic_substep``), the remap's
+the pressure columns after one acoustic loop of the dycore step, as in
+``chip_smoke.py``.
+
+Then the halo exchange plan that launches most often in one dycore step
+(``demos/dycore_step``, with a seeded tracer block): launches per step by
+plan, that plan's time per call and per launch, its bound, and one
+``torch.take`` per output over the inputs and their negatives laid end to
+end (built before the timing), checked equal to the plain exchange.
+
+Prints ``[build]``, ``[ab]`` and ``[halo]`` lines and the card's name and
+power limit (``nvidia-smi``). Needs one card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke  # noqa: E402  (the timing and bound helpers)
+from pace_tpu_torch import _build  # noqa: E402
+
+log = chip_smoke.log
+time_ms = chip_smoke.time_ms
+nbytes = chip_smoke.nbytes
+
+KERNELS = ("remap", "pgrad")
+
+
+def build_prev(prev_dir: str):
+    """The earlier sources built with the current flags: ``{name: CDLL}``."""
+    out_dir = _build.BUILD_DIR / "prev"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        out = out_dir / f"libprev_{name}.so"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+               os.path.join(prev_dir, _build.SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    libs = {}
+    for name, (p, out) in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"earlier {name} failed to build:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] earlier {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def in_turns(label, libs, name, call, reps, moved):
+    """``call`` with the earlier and the current library of ``name`` in
+    turns; logs the times and whether the outputs agree bit for bit."""
+    order = ("earlier", "current", "current", "earlier")
+    outs, times = {}, []
+    for which in order:
+        _build._LIBS[name] = libs[which]
+        outs.setdefault(which, call())
+        times.append(time_ms(call, reps))
+    _build._LIBS[name] = libs["current"]
+    a, b = outs["earlier"], outs["current"]
+    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    earlier = (times[0] + times[3]) / 2
+    current = (times[1] + times[2]) / 2
+    log(f"[ab] {label}: earlier {times[0]:.4f} / {times[3]:.4f} ms, current {times[1]:.4f} / "
+        f"{times[2]:.4f} ms (in the order earlier, current, current, earlier), "
+        f"{earlier / current:.2f}x; {moved / current / 1e6:.1f} GB/s of the bound's bytes "
+        f"(earlier {moved / earlier / 1e6:.1f}); outputs bit-identical: {same}")
+    return same
+
+
+def remap_and_pgrad(prev_dir, n, npz, dev):
+    from pace_tpu_torch.demos import acoustic_substep as sdemo
+    from pace_tpu_torch.demos import dycore_step as ddemo
+    from pace_tpu_torch.models.fv3.acoustics import acoustic_loop
+    from pace_tpu_torch.ops import pgrad_kernel as pgk
+    from pace_tpu_torch.ops import remap_kernel as rmk
+
+    t0 = time.perf_counter()
+    _build.build(list(KERNELS))
+    for name in KERNELS:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] current {name}: {line.strip()}")
+    prev = build_prev(prev_dir)
+    libs = {name: {"earlier": prev[name], "current": _build.library(name)} for name in KERNELS}
+    log(f"[build] both revisions in {time.perf_counter() - t0:.1f} s")
+    f32 = torch.float32
+    ok = True
+
+    scase = sdemo.build_case(n, npz, device=dev, dtype=f32)
+    _chalf, dhalf = sdemo.step(scase)
+    S, K, Y, X = dhalf.delp.shape
+    p_args = (dhalf.u, dhalf.v, dhalf.pk, dhalf.gz, dhalf.pp, dhalf.delp, scase.grid,
+              2.0 * scase.dt2)
+    consts = [t for _n, t, _s in pgk.grid_operands(scase.grid, S, Y, X)]
+    moved = nbytes(*p_args[:6], *consts, dhalf.u, dhalf.v)
+    ok &= in_turns(f"nh_p_grad {tuple(dhalf.delp.shape)} f32", libs["pgrad"], "pgrad",
+                   lambda: pgk.nh_p_grad_cuda(*p_args), 20, moved)
+    del scase, dhalf, p_args, consts
+    torch.cuda.empty_cache()
+
+    case = ddemo.build_case(n, npz, device=dev, dtype=f32)
+    st, cfg = case.state, case.core.config
+    res = acoustic_loop(st.u, st.v, st.w, st.delp, st.pt, st.phis, case.grid, case.halo,
+                        cfg.acoustic(), ddemo.TIMESTEP / cfg.k_split, delz=st.delz)
+    pe1 = torch.cat([torch.full_like(res.delp[:, :1], case.grid.ptop),
+                     case.grid.ptop + torch.cumsum(res.delp, dim=1)], dim=1)
+    pe2 = (case.grid.ak[None, :, None, None] + case.grid.bk[None, :, None, None] * pe1[:, -1:])
+    qblock = chip_smoke.seeded_tracers(st.q, 0)
+    ok &= in_turns(f"remap {tuple(res.pt.shape)} f32 kord -9", libs["remap"], "remap",
+                   lambda: rmk.remap_cuda(res.pt, pe1, pe2, -9), 20,
+                   nbytes(res.pt, pe1, pe2, res.pt))
+    ok &= in_turns(f"remap tracer block {tuple(qblock.shape)} f32 kord 9", libs["remap"],
+                   "remap", lambda: rmk.remap_cuda(qblock, pe1[:, None], pe2[:, None], 9), 5,
+                   nbytes(qblock, pe1, pe2, qblock))
+    return ok
+
+
+def halo_census(n, npz, dev):
+    from pace_tpu_torch.demos import dycore_step as ddemo
+    from pace_tpu_torch.parallel import halo_kernel as hk
+
+    case = ddemo.build_case(n, npz, device=dev, dtype=torch.float32)
+    case.state.q = chip_smoke.seeded_tracers(case.state.q, 3)
+    case.state = case.core.step_dynamics(case.state)  # warm: plans and maps built
+    keys = {id(p): k for k, p in case.core.halo.slabs._plans.items()}
+    counts = collections.Counter()
+    first = {}
+    orig = hk.halo_cuda
+
+    def counting(arrays, plan):
+        shapes = tuple(sorted((k, tuple(v.shape)) for k, v in arrays.items()))
+        key = (keys.get(id(plan), "unnamed"), shapes)
+        counts[key] += len(plan.outputs)
+        if key not in first:
+            first[key] = (plan, {k: v.clone() for k, v in arrays.items()})
+        return orig(arrays, plan)
+
+    hk.halo_cuda = counting
+    try:
+        case.state = case.core.step_dynamics(case.state)
+    finally:
+        hk.halo_cuda = orig
+    total = sum(counts.values())
+    log(f"[halo] launches in one C{n} npz={npz} dycore step: {total}, by plan and input shapes:")
+    for (name, shapes), c in counts.most_common(6):
+        log(f"[halo]   {c:5d} {name} {shapes}")
+    (name, shapes), c = counts.most_common(1)[0]
+    plan, arrays = first[(name, shapes)]
+    names = sorted(arrays)
+    S, K = arrays[names[0]].shape[:2]
+    planes = {k: tuple(v.shape[-2:]) for k, v in arrays.items()}
+    ms = time_ms(lambda: hk.halo_cuda(arrays, plan), 20)
+    plain_ms = time_ms(lambda: hk.halo_plain(arrays, plan), 5)
+    # one torch.take per output over [in0, in1, -in0, -in1] laid end to end
+    flat = [arrays[k].reshape(-1) for k in names]
+    src = torch.cat(flat + [-f for f in flat])
+    start = [0]
+    for f in flat[:-1]:
+        start.append(start[-1] + f.numel())
+    neg_start = sum(f.numel() for f in flat)
+    ref = hk.halo_plain(arrays, plan)
+    take_idx, out_bytes, map_bytes = [], 0, 0
+    for oname, _src, _shape in plan.outputs:
+        off, meta = (torch.from_numpy(m).to(dev, torch.int64)
+                     for m in hk.index_map(plan, oname, planes, S))
+        which = (meta >> 1) & 1
+        Pin = torch.tensor([planes[k][0] * planes[k][1] for k in names], device=dev)[which]
+        base = torch.tensor(start, device=dev)[which] + (meta & 1) * neg_start
+        g = base + (meta >> 2) * (K * Pin) + off  # (S, Yo, Xo), level 0
+        lev = torch.arange(K, device=dev).view(1, K, 1, 1) * Pin[:, None]
+        idx = (g[:, None] + lev).contiguous()
+        if not torch.equal(torch.take(src, idx), ref[oname]):
+            raise AssertionError(f"torch.take yardstick disagrees on halo output {oname}")
+        take_idx.append(idx)
+        out_bytes += nbytes(ref[oname])
+        map_bytes += 8 * idx[:, 0].numel()
+    lib_ms = time_ms(lambda: [torch.take(src, i) for i in take_idx], 20)
+    b_ms, b_by = chip_smoke.bound(2 * out_bytes + map_bytes, 0, torch.float32)
+    n_out = len(plan.outputs)
+    log(f"[halo] most launched: {name} on {shapes}, {c} launches a step ({n_out} a call): "
+        f"kernel {ms:.4f} ms a call, {ms / n_out:.4f} ms a launch, bound {b_ms:.4f} ms a call "
+        f"({b_by}), {b_ms / ms:.2f} of it; torch.take {lib_ms:.4f} ms a call; plain "
+        f"{plain_ms:.4f} ms")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--prev", required=True, help="directory of the earlier remap.cu, pgrad.cu")
+    ap.add_argument("--n", type=int, default=192)
+    ap.add_argument("--npz", type=int, default=79)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {smi}")
+    ok = remap_and_pgrad(args.prev, args.n, args.npz, dev)
+    torch.cuda.empty_cache()
+    halo_census(args.n, args.npz, dev)
+    print(smi)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
