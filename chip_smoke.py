@@ -23,8 +23,12 @@ Phases (any failure raises and exits non-zero):
    within 4 ulp of each output's maximum, and the vertical solve (sim1) on
    the columns a consumer reads, within 4 ulp of each output's maximum on
    the compute domain in float32 and within ``SIM1_F64_REL_TOL`` of it in
-   float64 (see ``check_sim1``). D-grid half, on the fields of one substep:
-   the multi-field transport, the D-grid tail, the flux-form height update
+   float64 (see ``check_sim1``), and again at K = 158 and K = 2 on a 5 x 37
+   plane of the compute domain, whose column count is no multiple of the
+   kernel's tile, in float32 and float64. D-grid half, on the fields of one
+   substep: the multi-field transport (and equal to single-field launches
+   for every hord, both y-fold forms, four fields and the two fields of
+   hydrostatic ``d_sw``), the D-grid tail, the flux-form height update
    and the nonhydrostatic pressure gradient (``nh_p_grad``) within 4 ulp of
    each output's maximum on the compute domain, ``nh_p_grad`` bit-identical
    away from the cube corners and on the seams between the kernel's interior
@@ -63,7 +67,10 @@ Phases (any failure raises and exits non-zero):
    dycore steps (``demos/dycore_step.run``) of ``bench.py``'s configuration,
    1 warm and 2 timed steps (the exact launch counts of all fourteen kernels
    per step, finite fields, ``delp > 0``, ``delz < 0``, dry and tracer mass,
-   the range of ``ps``, wind bounds);
+   the range of ``ps``, wind bounds), then whole hydrostatic steps with the
+   flag set of ``examples/configs/baroclinic_c12.yaml`` (``[step
+   hydrostatic]``, ``HYDROSTATIC_STEP_CONFIG``), with the same gates and
+   their own exact launch counts;
 5. where the time goes: two more steps of each demo under
    ``torch.profiler``, device time by kernel.
 
@@ -219,10 +226,32 @@ SUBSTEP_SETUP_LAUNCHES = {"halo": 2}
 #: exchange of phis, the remap of pt, w, delz, the tracer block, u and v),
 #: per tracer sub-cycle (the tracer fluxes and their two exchanges) and
 #: once per step (the diagnostics' wind exchange and d2a2c)
-STEP_LAUNCHES_PER_SUBSTEP = dict(LAUNCHES_PER_SUBSTEP, pgrad=1, halo=46)
-STEP_LAUNCHES_PER_OUTER = {"halo": 2, "remap": 6}
-STEP_LAUNCHES_PER_SUBCYCLE = {"fvtp2d_tracer": 1, "halo": 4}
-STEP_LAUNCHES_PER_STEP = {"halo": 2, "d2a2c": 1}
+STEP_LAUNCHES = {
+    "substep": dict(LAUNCHES_PER_SUBSTEP, pgrad=1, halo=46),
+    "outer": {"halo": 2, "remap": 6},
+    "subcycle": {"fvtp2d_tracer": 1, "halo": 4},
+    "step": {"halo": 2, "d2a2c": 1},
+}
+
+#: the hydrostatic flag set of examples/configs/baroclinic_c12.yaml
+#: (``dycore_config`` and ``dt_atmos``; every other field at its default: no
+#: Rayleigh damping, no fill, dynamic tracer sub-cycling), taken at C192
+#: npz=79 f32 by the ``[step hydrostatic]`` run
+HYDROSTATIC_STEP_CONFIG = dict(k_split=1, n_split=5, hydrostatic=True, nord=1, d4_bg=0.15,
+                               hord_mt=6, hord_vt=6, hord_tm=6, hord_dp=6, hord_tr=8)
+HYDROSTATIC_STEP_DT = 225.0
+#: its kernel launches (counted on the CPU with the wrappers counting, C12):
+#: per substep the hydrostatic C-grid half (d2a2c, c_sw tail, the interfaces
+#: for p_grad_c) and d_sw (the delp fluxes, pt and vorticity in one
+#: multi-field launch, the tail, the interfaces for one_grad_p), per outer
+#: step the remap of pt, the tracer block, u and v; no vertical solve
+HYDROSTATIC_STEP_LAUNCHES = {
+    "substep": {"d2a2c": 1, "c_sw_tail": 1, "hydro": 2, "fvtp2d": 1, "fvtp2d_multi": 1,
+                "d_sw_tail": 1, "halo": 35},
+    "outer": {"halo": 2, "remap": 4},
+    "subcycle": {"fvtp2d_tracer": 1, "halo": 4},
+    "step": {"halo": 2, "d2a2c": 1},
+}
 
 #: gates of the dycore step from the baroclinic-wave state (``[step]``):
 #: relative change of sum(delp area) and of the tracer mass sum(q delp area)
@@ -414,6 +443,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     from pace_tpu_torch.demos import tracer_advection as demo
     from pace_tpu_torch.models.fv3 import acoustics
     from pace_tpu_torch.models.fv3.acoustics import acoustic_loop
+    from pace_tpu_torch.models.fv3.dycore import DynamicalCore, DynamicalCoreConfig
     from pace_tpu_torch.ops import c_sw as c_sw_ops
     from pace_tpu_torch.ops import c_sw_tail_kernel as ck
     from pace_tpu_torch.ops import d2a2c as d2a2c_ops
@@ -856,6 +886,33 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             f"{float((ring(a, 3).double() - ring(b, 3)).abs().max()):.3e} from its float64 "
             f"evaluation on the compute domain (max {float(ring(b, 3).abs().max()):.3e})")
     del s_f64, s_got64, s_args64
+    # the tiling's limits, f32 and f64: K = 158 (each layer split into two
+    # halves of its delp and delz) and K = 2 (the top two layers), on a 5 x 37
+    # plane of the compute domain, whose 185 columns are no multiple of the
+    # kernel's tile (s1k.tile_columns); every column is consumed there
+    def sub_plane(t):
+        return t[..., 3:8, 3:40].contiguous()
+
+    halves = [torch.repeat_interleave(t, 2, dim=1) for t in s_args[:5]]
+    for j in (1, 3):  # delz, delp
+        halves[j] = halves[j] / 2
+    limits = {"K=158": [sub_plane(t) for t in halves] + [sub_plane(s_args[5])],
+              "K=2": [sub_plane(t[:, :2]) for t in s_args[:5]] + [sub_plane(s_args[5])]}
+    del halves
+    for label, args32 in limits.items():
+        for dtype in (f32, torch.float64):
+            args = [t.to(dtype) for t in args32]
+            K_ = args[0].shape[1]
+            got = s1k.sim1_solver_cuda(*args, dt2, cgrid.ptop, p_fac=p_fac)
+            ref = sim1_plain(args)
+            torch.cuda.synchronize()
+            tol = (dict.fromkeys(("w", "delz", "pp"), 4 * ulp) if dtype == f32
+                   else SIM1_F64_REL_TOL)
+            for nm, a, b in zip(("w", "delz", "pp"), got, ref):
+                check_close(f"sim1 {label} {str(dtype)[6:]} {nm} on a {tuple(a.shape)} plane "
+                            f"({s1k.tile_columns(K_, dtype)} columns a block)", a, b,
+                            tol[nm] * float(b.abs().max()))
+    del limits, args, got, ref
     ms = time_ms(lambda: s1k.sim1_solver_cuda(*s_args, dt2, cgrid.ptop, p_fac=p_fac), 20)
     plain_ms = time_ms(lambda: sim1_plain(s_args), 2)
     b_ms, b_by = bound(nbytes(*s_args, *s_got), SIM1_OPS_PER_POINT * s_args[0].numel(), f32)
@@ -863,7 +920,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     results["sim1"] = dict(max_abs_err=s_err["pp"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
     log(f"[time] sim1 {tuple(s_args[0].shape)} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the kernel's time")
     del s_got, s_ref, s_args, u_args, z_args, nhalf, ncase, area
     del ccase, st, cgrid, chalo, cslabs
     torch.cuda.empty_cache()
@@ -921,7 +978,17 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             raise AssertionError(f"fvtp2d multi hord {hord} differs from the single-field launch")
     log("[check] fvtp2d multi, four fields with hord 8, 7, 1, 5 (one y fold a full array): "
         "equal to the single-field launches")
-    del extra, e_got, single, pair
+    # hydrostatic d_sw's call: pt and the vorticity alone
+    p_got = fk.fvtp2d_multi_cuda(trio[:2], *m_args[1:], mfx=mfx, mfy=mfy)
+    for (qx, qy, hord, use_mf), pair in zip(trio[:2], p_got):
+        kw = dict(mfx=mfx, mfy=mfy) if use_mf else {}
+        single = fk.fvtp2d_cuda(qx, qy, crx, cry, xfx, yfx, sgrid.area, hord, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(pair[0], single[0]) and torch.equal(pair[1], single[1])):
+            raise AssertionError("fvtp2d multi, two fields: differs from the single-field launch")
+    log("[check] fvtp2d multi, two fields (pt and vorticity, hydrostatic d_sw's call): equal "
+        "to the single-field launches")
+    del extra, e_got, single, pair, p_got
     ms = time_ms(lambda: fk.fvtp2d_multi_cuda(*m_args, mfx=mfx, mfy=mfy), 20)
     plain_ms = time_ms(lambda: fk.fvtp2d_multi_plain(*m_args, mfx=mfx, mfy=mfy), 2)
     single_ms = time_ms(lambda: [
@@ -938,7 +1005,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                                    bound_by=b_by, library_ms=None)
     log(f"[time] fvtp2d multi 3 x {tuple(vort.shape)} f32 hord {[t[2] for t in trio]}: kernel "
         f"{ms:.4f} ms, three single-field launches {single_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the kernel's time")
     del m_ref, m_in, m_out
 
     # the tail's operands: synced vorticity fluxes and vorticity damping fluxes
@@ -1511,90 +1578,103 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     if failures:
         raise AssertionError("substep checks failed: " + "; ".join(failures))
 
-    # --- whole dycore steps of bench.py's configuration through the demo's
-    #     entry point, with a seeded tracer block to conserve
+    # --- whole dycore steps through the demo's entry point, with a seeded
+    #     tracer block to conserve: bench.py's configuration, then the
+    #     hydrostatic flag set of examples/configs/baroclinic_c12.yaml
+    def run_steps(tag, step_case, tables, warm=1, timed=2):
+        """``warm`` + ``timed`` steps of ``step_case`` with the launch
+        counters set to 0 just before and read just after; the launches held
+        to ``tables`` exactly, the state to the step gates. Returns the
+        demo's result and the launches."""
+        step_case.state.q = seeded_tracers(step_case.state.q, 3)
+        sgrid = step_case.grid
+        i = (..., slice(sgrid.n_halo, -sgrid.n_halo), slice(sgrid.n_halo, -sgrid.n_halo))
+        area = sgrid.area[i].double()[:, None]
+
+        def masses(st):
+            dm = st.delp[i].double() * area
+            return float(dm.sum()), float((st.q[i].double() * dm[:, None]).sum())
+
+        m0, qm0 = masses(step_case.state)
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stout = ddemo.run(case=step_case, warm=warm, steps=timed)
+        st_launches = {k: c[k] for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        n_steps = warm + timed
+        fst = step_case.state
+        m1, qm1 = masses(fst)
+        n_sub = sum(sum(s_) for s_ in stout["tracer_subcycles"])
+        cfg_ = step_case.core.config
+        per = {"substep": n_steps * cfg_.k_split * cfg_.n_split,
+               "outer": n_steps * cfg_.k_split, "subcycle": n_sub, "step": n_steps}
+        want = {k: 0 for k in counters}
+        for kind, table in tables.items():
+            for k, v in table.items():
+                want[k] += v * per[kind]
+        stats = {
+            "finite": all(bool(torch.isfinite(getattr(fst, f)[i]).all())
+                          for f in ("u", "v", "w", "delp", "pt", "delz", "q", "ps")),
+            "delp_min": float(fst.delp[i].min()), "delz_max": float(fst.delz[i].max()),
+            "mass_drift": abs(m1 - m0) / m0, "tracer_drift": abs(qm1 - qm0) / qm0,
+            "ps_min": float(fst.ps[i].min()), "ps_max": float(fst.ps[i].max()),
+            "uv_max": max(float(fst.u[i].abs().max()), float(fst.v[i].abs().max())),
+            "w_max": float(fst.w[i].abs().max()), "pt_min": float(fst.pt[i].min()),
+            "pt_max": float(fst.pt[i].max()),
+        }
+        log(f"[{tag}] C{n} npz={npz} f32 dt={step_case.core.timestep:.0f} s "
+            f"hydrostatic={cfg_.hydrostatic} k_split={cfg_.k_split} n_split={cfg_.n_split} "
+            f"nord={cfg_.nord} d2_bg_k1={cfg_.d2_bg_k1} d2_bg_k2={cfg_.d2_bg_k2} "
+            f"d4_bg={cfg_.d4_bg}, {timed} steps after {warm} warm: "
+            f"{stout['ms_per_step']:.3f} ms/step (ms: "
+            f"{', '.join(f'{t:.3f}' for t in stout['step_ms'])}), "
+            f"{stout['gridpoints_per_s']:.1f} grid-point updates/s, peak memory {peak_gb:.2f} "
+            f"GB, tracer sub-cycles per outer step {stout['tracer_subcycles']}")
+        log(f"[{tag}] after {n_steps} steps: finite {stats['finite']}, delp min "
+            f"{stats['delp_min']:.4f} Pa, delz max {stats['delz_max']:.4f} m, drift of dry mass "
+            f"{stats['mass_drift']:.3e} and of tracer mass {stats['tracer_drift']:.3e} (allowed "
+            f"{STEP_MASS_DRIFT_MAX}), ps in [{stats['ps_min']:.1f}, {stats['ps_max']:.1f}] Pa "
+            f"(allowed {PS_RANGE}), max|u|,|v| {stats['uv_max']:.3f} m/s (allowed {UV_MAX}), "
+            f"max|w| {stats['w_max']:.4e} m/s (allowed {W_MAX}), pt in [{stats['pt_min']:.3f}, "
+            f"{stats['pt_max']:.3f}] K")
+        log(f"[{tag}] launches in {n_steps} steps: {st_launches}")
+        failures = []
+        if not stats["finite"]:
+            failures.append("non-finite fields")
+        if not stats["delp_min"] > 0:
+            failures.append(f"delp min {stats['delp_min']}")
+        if not stats["delz_max"] < 0:
+            failures.append(f"delz max {stats['delz_max']}")
+        for k in ("mass_drift", "tracer_drift"):
+            if not stats[k] <= STEP_MASS_DRIFT_MAX:
+                failures.append(f"{k} {stats[k]}")
+        if not PS_RANGE[0] <= stats["ps_min"] <= stats["ps_max"] <= PS_RANGE[1]:
+            failures.append(f"ps range [{stats['ps_min']}, {stats['ps_max']}]")
+        if not stats["uv_max"] <= UV_MAX:
+            failures.append(f"max|u|,|v| {stats['uv_max']}")
+        if not stats["w_max"] <= W_MAX:
+            failures.append(f"max|w| {stats['w_max']}")
+        for k, c in want.items():
+            if st_launches[k] != c:
+                failures.append(f"kernel {k} launched {st_launches[k]} times, expected {c}")
+        if failures:
+            raise AssertionError(f"{tag} checks failed: " + "; ".join(failures))
+        return stout, st_launches
+
     # build_case applies the demo's STABLE_DAMPING: with bench.py's divergence
     # damping the step diverges from this state (ROADMAP queue 3); the change
     # is to coefficients only, no operation or launch
     step_case = ddemo.build_case(n, npz, device=dev, dtype=f32)
-    step_case.state.q = seeded_tracers(step_case.state.q, 3)
-    sgrid = step_case.grid
-    i = (..., slice(sgrid.n_halo, -sgrid.n_halo), slice(sgrid.n_halo, -sgrid.n_halo))
-    area = sgrid.area[i].double()[:, None]
-
-    def masses(st):
-        dm = st.delp[i].double() * area
-        return float(dm.sum()), float((st.q[i].double() * dm[:, None]).sum())
-
-    m0, qm0 = masses(step_case.state)
-    warm, timed = 1, 2
-    zero_counters()
-    torch.cuda.reset_peak_memory_stats(dev)
-    stout = ddemo.run(case=step_case, warm=warm, steps=timed)
-    st_launches = {k: c[k] for k, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    n_steps = warm + timed
-    fst = step_case.state
-    m1, qm1 = masses(fst)
-    n_sub = sum(sum(s_) for s_ in stout["tracer_subcycles"])
-    cfg_ = step_case.core.config
-    per = {"substep": n_steps * cfg_.k_split * cfg_.n_split, "outer": n_steps * cfg_.k_split,
-           "subcycle": n_sub, "step": n_steps}
-    want = {k: 0 for k in counters}
-    for table, count in ((STEP_LAUNCHES_PER_SUBSTEP, per["substep"]),
-                         (STEP_LAUNCHES_PER_OUTER, per["outer"]),
-                         (STEP_LAUNCHES_PER_SUBCYCLE, per["subcycle"]),
-                         (STEP_LAUNCHES_PER_STEP, per["step"])):
-        for k, v in table.items():
-            want[k] += v * count
-    stats = {
-        "finite": all(bool(torch.isfinite(getattr(fst, f)[i]).all())
-                      for f in ("u", "v", "w", "delp", "pt", "delz", "q", "ps")),
-        "delp_min": float(fst.delp[i].min()), "delz_max": float(fst.delz[i].max()),
-        "mass_drift": abs(m1 - m0) / m0, "tracer_drift": abs(qm1 - qm0) / qm0,
-        "ps_min": float(fst.ps[i].min()), "ps_max": float(fst.ps[i].max()),
-        "uv_max": max(float(fst.u[i].abs().max()), float(fst.v[i].abs().max())),
-        "w_max": float(fst.w[i].abs().max()), "pt_min": float(fst.pt[i].min()),
-        "pt_max": float(fst.pt[i].max()),
-    }
-    log(f"[step] C{n} npz={npz} f32 dt={ddemo.TIMESTEP:.0f} s k_split={cfg_.k_split} "
-        f"n_split={cfg_.n_split} d2_bg_k1={cfg_.d2_bg_k1} d2_bg_k2={cfg_.d2_bg_k2} "
-        f"d4_bg={cfg_.d4_bg}, {timed} "
-        f"steps after {warm} warm: "
-        f"{stout['ms_per_step']:.3f} ms/step (ms: {', '.join(f'{t:.3f}' for t in stout['step_ms'])}), "
-        f"{stout['gridpoints_per_s']:.1f} grid-point updates/s, peak memory {peak_gb:.2f} GB, "
-        f"tracer sub-cycles per outer step {stout['tracer_subcycles']}")
-    log(f"[step] after {n_steps} steps: finite {stats['finite']}, delp min "
-        f"{stats['delp_min']:.4f} Pa, delz max {stats['delz_max']:.4f} m, drift of dry mass "
-        f"{stats['mass_drift']:.3e} and of tracer mass {stats['tracer_drift']:.3e} (allowed "
-        f"{STEP_MASS_DRIFT_MAX}), ps in [{stats['ps_min']:.1f}, {stats['ps_max']:.1f}] Pa "
-        f"(allowed {PS_RANGE}), max|u|,|v| {stats['uv_max']:.3f} m/s (allowed {UV_MAX}), "
-        f"max|w| {stats['w_max']:.4e} m/s (allowed {W_MAX}), pt in [{stats['pt_min']:.3f}, "
-        f"{stats['pt_max']:.3f}] K")
-    log(f"[step] launches in {n_steps} steps: {st_launches}")
-    failures = []
-    if not stats["finite"]:
-        failures.append("non-finite fields")
-    if not stats["delp_min"] > 0:
-        failures.append(f"delp min {stats['delp_min']}")
-    if not stats["delz_max"] < 0:
-        failures.append(f"delz max {stats['delz_max']}")
-    for k in ("mass_drift", "tracer_drift"):
-        if not stats[k] <= STEP_MASS_DRIFT_MAX:
-            failures.append(f"{k} {stats[k]}")
-    if not PS_RANGE[0] <= stats["ps_min"] <= stats["ps_max"] <= PS_RANGE[1]:
-        failures.append(f"ps range [{stats['ps_min']}, {stats['ps_max']}]")
-    if not stats["uv_max"] <= UV_MAX:
-        failures.append(f"max|u|,|v| {stats['uv_max']}")
-    if not stats["w_max"] <= W_MAX:
-        failures.append(f"max|w| {stats['w_max']}")
-    for k, c in want.items():
-        if st_launches[k] != c:
-            failures.append(f"kernel {k} launched {st_launches[k]} times, expected {c}")
-        if c <= 0:
-            failures.append(f"kernel {k} not on the step's path")
-    if failures:
-        raise AssertionError("dycore step checks failed: " + "; ".join(failures))
+    stout, st_launches = run_steps("step", step_case, STEP_LAUNCHES)
+    missing = [k for k, c in st_launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels not on the dycore step's path: {missing}")
+    h_case = ddemo.build_case(n, npz, device=dev, dtype=f32)
+    h_case.core = DynamicalCore(h_case.grid, h_case.halo,
+                                DynamicalCoreConfig(npz=npz, **HYDROSTATIC_STEP_CONFIG),
+                                timestep=HYDROSTATIC_STEP_DT)
+    h_out, h_launches = run_steps("step hydrostatic", h_case, HYDROSTATIC_STEP_LAUNCHES)
+    del h_case
 
     # ------------------------------------------------------------------
     # 5. where the time goes: two more steps under the profiler (after the
@@ -1640,7 +1720,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         r = results[name]
         by_path = {"tracer_advection": launches[name], "cgrid_half_step": c_launches[name],
                    "nh_cgrid_half_step": n_launches[name],
-                   "acoustic_substep": s_launches[name], "dycore_step": st_launches[name]}
+                   "acoustic_substep": s_launches[name], "dycore_step": st_launches[name],
+                   "dycore_step_hydrostatic": h_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

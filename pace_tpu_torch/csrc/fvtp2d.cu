@@ -145,6 +145,113 @@ __device__ __forceinline__ T flux_1d(T qm3, T qm2, T qm1, T q0, T qp1, T qp2, T 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The interface values of flux_1d with each per-cell term formed once, for a
+// thread that walks a line: al once per interface, (bl, br, b0) once per
+// cell, and each interface's value from its two cells' terms. Every term is
+// formed by flux_1d's own expression, so the values are its bits.
+
+// al of the interface between cells qm1 and q0 (hord 5, 6, 7)
+template <typename T>
+__device__ __forceinline__ T ppm_al(T qm2, T qm1, T q0, T qp1) {
+  return T(7.0 / 12.0) * (qm1 + q0) - T(1.0 / 12.0) * (qm2 + qp1);
+}
+
+// al of the same interface at hord 8, from the two cells' mono slopes
+template <typename T>
+__device__ __forceinline__ T ppm_al8(T qm1, T q0, T dm_m1, T dm_0) {
+  return T(0.5) * (qm1 + q0) + T(1.0 / 3.0) * (dm_m1 - dm_0);
+}
+
+template <typename T>
+struct PpmCell {
+  T bl, br, b0;
+};
+
+// a cell's interface perturbations from its mean and its two al (dm: its
+// mono slope, read at hord 8 only)
+template <typename T, int HORD>
+__device__ __forceinline__ PpmCell<T> ppm_cell(T q, T al_l, T al_r, T dm) {
+  T bl, br;
+  if constexpr (HORD == 8) {
+    mono_b(q, dm, al_l, al_r, bl, br);
+  } else {
+    bl = al_l - q;
+    br = al_r - q;
+    if constexpr (HORD == 7) positive_limit(q, bl, br);
+  }
+  return {bl, br, bl + br};
+}
+
+// the upstream profile mean at the interface between cells m1 and 0
+template <typename T>
+__device__ __forceinline__ T ppm_face(T qm1, const PpmCell<T>& m1, T q0,
+                                      const PpmCell<T>& c0, T c) {
+  const T f_pos = qm1 + (T(1.0) - c) * (m1.br - c * m1.b0);
+  const T f_neg = q0 + (T(1.0) + c) * (c0.bl + c * c0.b0);
+  return c > T(0) ? f_pos : f_neg;
+}
+
+// n <= N consecutive interface values along a line into out[0..n): interface
+// t lies between cells q[(t-1) qs] and q[t qs], its courant number is
+// cr[t cs]. Cells q[-3 qs] .. q[(n+1) qs] are read once each; the stencil
+// window, the next al and the upwind cell's terms stay in registers.
+template <typename T, int HORD, int N>
+__device__ __forceinline__ void ppm_sweep(const T* q, int qs, const T* cr, int cs,
+                                          int n, T (&out)[N]) {
+  if constexpr (HORD == 1) {
+    T qm1 = q[-qs];
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      if (t < n) {
+        const T q0 = q[t * qs];
+        out[t] = cr[t * cs] > T(0) ? qm1 : q0;
+        qm1 = q0;
+      }
+    }
+  } else {
+    T qm1 = q[-qs], q0 = q[0], qp1 = q[qs];
+    T al_0, dm_0 = T(0);
+    PpmCell<T> cm1;
+    {
+      const T qm3 = q[-3 * qs], qm2 = q[-2 * qs];
+      if constexpr (HORD == 8) {
+        const T dm_m2 = dm_mono(qm3, qm2, qm1);
+        const T dm_m1 = dm_mono(qm2, qm1, q0);
+        dm_0 = dm_mono(qm1, q0, qp1);
+        const T al_m1 = ppm_al8(qm2, qm1, dm_m2, dm_m1);
+        al_0 = ppm_al8(qm1, q0, dm_m1, dm_0);
+        cm1 = ppm_cell<T, 8>(qm1, al_m1, al_0, dm_m1);
+      } else {
+        const T al_m1 = ppm_al(qm3, qm2, qm1, q0);
+        al_0 = ppm_al(qm2, qm1, q0, qp1);
+        cm1 = ppm_cell<T, HORD>(qm1, al_m1, al_0, T(0));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      if (t < n) {
+        const T qp2 = q[(t + 2) * qs];
+        T al_p1, dm_p1 = T(0);
+        if constexpr (HORD == 8) {
+          dm_p1 = dm_mono(q0, qp1, qp2);
+          al_p1 = ppm_al8(q0, qp1, dm_0, dm_p1);
+        } else {
+          al_p1 = ppm_al(qm1, q0, qp1, qp2);
+        }
+        const PpmCell<T> c0 = ppm_cell<T, HORD>(q0, al_0, al_p1, dm_0);
+        out[t] = ppm_face(qm1, cm1, q0, c0, cr[t * cs]);
+        qm1 = q0;
+        q0 = qp1;
+        qp1 = qp2;
+        al_0 = al_p1;
+        dm_0 = dm_p1;
+        cm1 = c0;
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
@@ -326,35 +433,65 @@ int launch(const void* qx, const void* qy, int qy_mode, int h, const void* crx,
 // Several fields that share crx, cry, xfx, yfx, area and the mass fluxes
 // (d_sw's pt / vorticity / w), each with its own hord, its own weighting
 // (mass fluxes or area fluxes) and its own y-fold form (full array or corner
-// pack). One block per (tile, level, shard) stages the five shared operands
-// once, forms the two updated areas
-//   ra_y = area + (yfx - yfx[+1]),   ra_x = area + (xfx - xfx[+1])
-// once, and then takes the fields one after the other through the stages of
-// fvtp2d_kernel above, in the same operation order, so every field's fx, fy
-// equal the single-field launch's bit for bit (zero outermost interface
-// column / row included). The kernel is instantiated once per hord for calls
-// whose fields all share it (d_sw's usual case), and once with HORD = 0,
-// where a switch per field picks the flux_1d instantiation: hord is uniform
-// over a block, so the switch costs no divergence, but that instantiation
-// carries the registers of its most expensive branch (hord 8) whatever runs.
+// pack), in one launch. Every field's fx, fy equal the single-field launch's
+// bit for bit (zero outermost interface column / row included): the stages
+// are fvtp2d_kernel's, and the 1-D sweeps give flux_1d's values by ppm_sweep.
 // Bound on an H100: bytes. With three fields at C192 npz=79 f32: 3 qx, 4
 // shared operands, 2 mass fluxes in, 6 flux arrays out, about 15 fields
 // (~1.1 GB, ~0.33 ms at 3.35 TB/s) against 3 x 76 operations per point at
 // hord 6 (~0.02 ms at 67 TFLOP/s). Three single-field launches would move
 // 27 fields.
+// Design: one block per (16 x 32 tile, level, shard), 256 threads.
+// - The window's plane rows and columns (wrapped like a roll only at the
+//   plane's edges) are formed once per block; staging then costs a
+//   table read, an address and a cp.async per value, no modulo.
+// - The shared operands arrive once by cp.async. The updated areas of the
+//   inner updates, ra_y = area + (yfx - yfx[+1]) and ra_x = area + (xfx -
+//   xfx[+1]), are formed where each update reads them: two operations
+//   cost less than a pass, a barrier and two arrays.
+// - Fields run in a pipeline: field f + 1's qx / qy are in flight by
+//   cp.async into the second buffer pair while field f is computed.
+// - Each 1-D sweep is a thread walking a short segment of a line with
+//   ppm_sweep: al once per interface of the segment, the cell terms once
+//   per cell. Per field: the inner sweeps (21 rows of 33 x-interfaces and
+//   37 columns of 17 y-interfaces, the ones the updates and results read,
+//   in segments of kSegIn), the inner updates in place, the outer sweeps
+//   (16 rows of 32 and 32 columns of 16 interfaces in segments of
+//   kSegOut), averaged with the inner fluxes in place, and the weighted
+//   results stored with a warp's lanes on consecutive interfaces; four
+//   barriers. Segment lengths and blocks an SM were chosen by timing the
+//   candidates on an H100 (tools/torch_kernel_variants.py, PERF.md): longer
+//   segments save arithmetic but cost registers, and spills.
+// - Rows of the staged arrays are LD = 41 values apart, so that the lanes
+//   of a warp on different rows read different banks.
+// - 11 arrays of 22 x 41 values: 40 KB of float, four blocks an SM (64
+//   registers a thread).
 
 constexpr int kMaxFields = 4;
-constexpr int kArraysMulti = 11;  // the nine of fvtp2d_kernel, ra_x, ra_y
+// crx, cry, xfx, yfx, area, two buffers of (qx, qy), fx1, fy1
+constexpr int kArraysMulti = 11;
+// Row stride of the staged arrays: 41 = 9 mod 32, so that the lanes of a warp
+// that walk different rows (inner x sweep) or segments of a few rows (outer
+// x sweep) read different shared-memory banks.
+constexpr int LD = 41;
+constexpr int NSM = SY * LD;  // values per staged array
+constexpr int kSegIn = 3;   // interfaces a thread walks in an inner sweep
+constexpr int kSegOut = 2;  // ... in an outer sweep
+constexpr int kSegsX = (TX + 1 + kSegIn - 1) / kSegIn;  // a row's inner x segments
+constexpr int kSegsY = (TY + 1 + kSegIn - 1) / kSegIn;  // a column's inner y segments
+// The inner sweeps cover the rows (columns) that the updates and the
+// results read: fx1 on rows 0 .. SY-2, fy1 on columns 0 .. SX-2.
+constexpr int kInX = (SY - 1) * kSegsX;
+constexpr int kInY = (SX - 1) * kSegsY;
+constexpr int kOutX = TY * (TX / kSegOut);
+constexpr int kOutY = TX * (TY / kSegOut);
+static_assert(TX % kSegOut == 0 && TY % kSegOut == 0, "outer segments tile the tile");
 
-// Blocks per SM that the multi-field kernel is compiled for. The kernel is
-// held back by its shared-memory passes and arithmetic, not by operand
-// traffic, so it needs the single-field kernel's occupancy to keep up with
-// single-field launches: six blocks of float (40 registers a thread, a few
-// spilled), four for the switch instantiation, whose spills at six cost more
-// than the occupancy gains, three of double (shared memory allows no more).
-template <typename T, int HORD>
+// Blocks per SM that the multi-field kernel is compiled for (shared memory
+// allows four of float, two of double).
+template <typename T>
 constexpr int multi_blocks() {
-  return sizeof(T) == 8 ? 3 : (HORD == 0 ? 4 : 6);
+  return sizeof(T) == 8 ? 2 : 4;
 }
 
 template <typename T>
@@ -369,97 +506,180 @@ struct MultiFields {
   int n;
 };
 
-// One field through the staged tile: q and its y fold into shared memory,
-// inner fluxes, inner updates in place, outer sweeps and the weighted
-// results. All threads of the block call it together; it ends on a barrier
-// so the next field may overwrite the staged arrays.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The plane rows and columns of a tile's staged window, formed once per
+// block: the tile's own rows and columns, and those of its stencil halo,
+// wrapped like a roll only where they fall off the plane; and their places
+// in the y-fold corner pack (-1 outside the pack's rows or columns).
+struct Window {
+  int gj[SY], gi[SX];
+  int pr[SY], pc[SX];
+};
+
+__device__ __forceinline__ void form_window(Window& w, int j0, int i0, int h, int Y, int X) {
+  const int t = threadIdx.x;
+  if (t < SY) {
+    int gj = j0 - R + t;
+    if (gj < 0 || gj >= Y) gj = wrap(gj, Y);
+    w.gj[t] = gj;
+    w.pr[t] = gj < h ? gj : (gj >= Y - h ? gj - (Y - h) + h : -1);
+  } else if (t < SY + SX) {
+    int gi = i0 - R + (t - SY);
+    if (gi < 0 || gi >= X) gi = wrap(gi, X);
+    w.gi[t - SY] = gi;
+    w.pc[t - SY] = gi < h ? gi : (gi >= X - h ? gi - (X - h) + h : -1);
+  }
+}
+
+// Staging: a thread keeps one column b of the window and takes every
+// kStageRows-th row (kStageRows = 6 rows of 38 columns at a time).
+constexpr int kStageRows = kThreads / SX;
+
+// One field's qx and y fold into a buffer pair, by cp.async (no commit).
+template <typename T>
+__device__ __forceinline__ void stage_field(
+    T* s_qx, T* s_qy, const T* __restrict__ qx_p, const T* __restrict__ qy_p,
+    int qy_mode, int h, const Window& win, int X) {
+  const int t = threadIdx.x;
+  if (t >= kStageRows * SX) return;
+  const int b = t % SX;
+  const int gi = win.gi[b], pc = win.pc[b];
+  for (int a = t / SX; a < SY; a += kStageRows) {
+    const int m = a * LD + b;
+    const int gj = win.gj[a];
+    const T* src = qx_p + gj * X + gi;
+    cp_async(s_qx + m, src);
+    if (qy_mode == 0) {
+      src = qy_p + gj * X + gi;
+    } else {  // the corner pack where both the row and the column lie in it
+      const int pr = win.pr[a];
+      if (pr >= 0 && pc >= 0) src = qy_p + pr * 2 * h + pc;
+    }
+    cp_async(s_qy + m, src);
+  }
+}
+
+// One field through the staged tile: the inner sweeps, the inner updates in
+// place, the outer sweeps and the weighted results. All threads of the block
+// call it together; it ends on a barrier so the buffer may be refilled.
 template <typename T, int HORD>
 __device__ void transport_field(
-    T* sm, const T* __restrict__ qx_p, const T* __restrict__ qy_p, int qy_mode,
-    int h, const T* __restrict__ wx_p, const T* __restrict__ wy_p,
-    T* __restrict__ fx_p, T* __restrict__ fy_p, int j0, int i0, int Y, int X) {
-  T* s_qx = sm;
-  T* s_qy = sm + NS;
-  T* s_crx = sm + 2 * NS;
-  T* s_cry = sm + 3 * NS;
-  T* s_xfx = sm + 4 * NS;
-  T* s_yfx = sm + 5 * NS;
-  T* s_area = sm + 6 * NS;
-  T* s_fx1 = sm + 7 * NS;
-  T* s_fy1 = sm + 8 * NS;
-  T* s_rax = sm + 9 * NS;
-  T* s_ray = sm + 10 * NS;
+    T* sm, T* s_qx, T* s_qy, const T* __restrict__ wx_p,
+    const T* __restrict__ wy_p, T* __restrict__ fx_p, T* __restrict__ fy_p, int j0, int i0,
+    int Y, int X) {
+  const T* s_crx = sm;
+  const T* s_cry = sm + NSM;
+  const T* s_xfx = sm + 2 * NSM;
+  const T* s_yfx = sm + 3 * NSM;
+  const T* s_area = sm + 4 * NSM;
+  T* s_fx1 = sm + 9 * NSM;
+  T* s_fy1 = sm + 10 * NSM;
   const int X1 = X + 1;
+  const int tid = threadIdx.x;
 
-  for (int idx = threadIdx.x; idx < NS; idx += kThreads) {
-    const int a = idx / SX;
-    const int b = idx - a * SX;
-    const int gj = wrap(j0 - R + a, Y);
-    const int gi = wrap(i0 - R + b, X);
-    const T vx = qx_p[gj * X + gi];
-    s_qx[idx] = vx;
-    T vy;
-    if (qy_mode == 0) {
-      vy = qy_p[gj * X + gi];
+  // inner sweeps: fx1 of qx along rows (interface cols R..TX+R; a warp's
+  // lanes on consecutive rows), fy1 of qy along columns (interface rows
+  // R..TY+R; lanes on consecutive columns)
+  for (int it = tid; it < kInX + kInY; it += kThreads) {
+    if (it < kInX) {
+      const int a = it % (SY - 1);
+      const int b = R + (it / (SY - 1)) * kSegIn;
+      const int n = min(kSegIn, TX + R + 1 - b);
+      const int m = a * LD + b;
+      T f[kSegIn];
+      ppm_sweep<T, HORD>(s_qx + m, 1, s_crx + m, 1, n, f);
+#pragma unroll
+      for (int t = 0; t < kSegIn; ++t)
+        if (t < n) s_fx1[m + t] = f[t];
     } else {
-      const int pr = gj < h ? gj : (gj >= Y - h ? gj - (Y - h) + h : -1);
-      const int pc = gi < h ? gi : (gi >= X - h ? gi - (X - h) + h : -1);
-      vy = (pr >= 0 && pc >= 0) ? qy_p[pr * 2 * h + pc] : vx;
+      const int e = it - kInX;
+      const int b = e % (SX - 1);
+      const int a = R + (e / (SX - 1)) * kSegIn;
+      const int n = min(kSegIn, TY + R + 1 - a);
+      const int m = a * LD + b;
+      T f[kSegIn];
+      ppm_sweep<T, HORD>(s_qy + m, LD, s_cry + m, LD, n, f);
+#pragma unroll
+      for (int t = 0; t < kSegIn; ++t)
+        if (t < n) s_fy1[m + t * LD] = f[t];
     }
-    s_qy[idx] = vy;
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < SY * (TX + 1); idx += kThreads) {
-    const int a = idx / (TX + 1);
-    const int b = R + idx - a * (TX + 1);
-    const T* r = s_qx + a * SX + b;
-    s_fx1[a * SX + b] =
-        flux_1d<T, HORD>(r[-3], r[-2], r[-1], r[0], r[1], r[2], s_crx[a * SX + b]);
-  }
-  for (int idx = threadIdx.x; idx < (TY + 1) * SX; idx += kThreads) {
-    const int a = R + idx / SX;
-    const int b = idx - (a - R) * SX;
-    const T* c = s_qy + a * SX + b;
-    s_fy1[a * SX + b] = flux_1d<T, HORD>(c[-3 * SX], c[-2 * SX], c[-SX], c[0],
-                                         c[SX], c[2 * SX], s_cry[a * SX + b]);
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < TY * (SX - 1); idx += kThreads) {
+  // inner updates, in place over the staged fields:
+  //   q_i = (qy*area + (gy - gy[+1])) / (area + (yfx - yfx[+1])), gy = yfx*fy1
+  //   q_j = (qx*area + (gx - gx[+1])) / (area + (xfx - xfx[+1])), gx = xfx*fx1
+  for (int idx = tid; idx < TY * (SX - 1); idx += kThreads) {
     const int a = R + idx / (SX - 1);
     const int b = idx - (a - R) * (SX - 1);
-    const int m = a * SX + b;
+    const int m = a * LD + b;
     const T g0 = s_yfx[m] * s_fy1[m];
-    const T g1 = s_yfx[m + SX] * s_fy1[m + SX];
-    s_qy[m] = (s_qy[m] * s_area[m] + (g0 - g1)) / s_ray[m];
+    const T g1 = s_yfx[m + LD] * s_fy1[m + LD];
+    const T ra = s_area[m] + (s_yfx[m] - s_yfx[m + LD]);
+    s_qy[m] = (s_qy[m] * s_area[m] + (g0 - g1)) / ra;
   }
-  for (int idx = threadIdx.x; idx < (SY - 1) * TX; idx += kThreads) {
+  for (int idx = tid; idx < (SY - 1) * TX; idx += kThreads) {
     const int a = idx / TX;
     const int b = R + idx - a * TX;
-    const int m = a * SX + b;
+    const int m = a * LD + b;
     const T g0 = s_xfx[m] * s_fx1[m];
     const T g1 = s_xfx[m + 1] * s_fx1[m + 1];
-    s_qx[m] = (s_qx[m] * s_area[m] + (g0 - g1)) / s_rax[m];
+    const T ra = s_area[m] + (s_xfx[m] - s_xfx[m + 1]);
+    s_qx[m] = (s_qx[m] * s_area[m] + (g0 - g1)) / ra;
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < TY * TX; idx += kThreads) {
+  // outer sweeps: fx of q_i along the tile's rows (a warp's lanes on the
+  // segments of two rows), fy of q_j along its columns (lanes on
+  // consecutive columns); each averaged with the inner flux in place
+  for (int it = tid; it < kOutX + kOutY; it += kThreads) {
+    if (it < kOutX) {
+      const int a = it / (TX / kSegOut);
+      const int b = (it - a * (TX / kSegOut)) * kSegOut;
+      const int m = (a + R) * LD + (b + R);
+      T f[kSegOut];
+      ppm_sweep<T, HORD>(s_qy + m, 1, s_crx + m, 1, kSegOut, f);
+#pragma unroll
+      for (int t = 0; t < kSegOut; ++t) s_fx1[m + t] = T(0.5) * (f[t] + s_fx1[m + t]);
+    } else {
+      const int e = it - kOutX;
+      const int a = (e / TX) * kSegOut;
+      const int b = e - (e / TX) * TX;
+      const int m = (a + R) * LD + (b + R);
+      T f[kSegOut];
+      ppm_sweep<T, HORD>(s_qx + m, LD, s_cry + m, LD, kSegOut, f);
+#pragma unroll
+      for (int t = 0; t < kSegOut; ++t)
+        s_fy1[m + t * LD] = T(0.5) * (f[t] + s_fy1[m + t * LD]);
+    }
+  }
+  __syncthreads();
+
+  // the weighted results, a warp's lanes on consecutive interfaces of a row
+  for (int idx = tid; idx < TY * TX; idx += kThreads) {
     const int a = idx / TX;
     const int b = idx - a * TX;
     const int j = j0 + a;
     const int i = i0 + b;
     if (j >= Y || i >= X) continue;
-    const int m = (a + R) * SX + (b + R);
-    const T* r = s_qy + m;  // q_i along the row
-    const T fxo = flux_1d<T, HORD>(r[-3], r[-2], r[-1], r[0], r[1], r[2], s_crx[m]);
+    const int m = (a + R) * LD + (b + R);
     const T wx = wx_p ? wx_p[j * X1 + i] : s_xfx[m];
-    fx_p[j * X1 + i] = (T(0.5) * (fxo + s_fx1[m])) * wx;
-    const T* c = s_qx + m;  // q_j along the column
-    const T fyo = flux_1d<T, HORD>(c[-3 * SX], c[-2 * SX], c[-SX], c[0], c[SX],
-                                   c[2 * SX], s_cry[m]);
+    fx_p[j * X1 + i] = s_fx1[m] * wx;
     const T wy = wy_p ? wy_p[j * X + i] : s_yfx[m];
-    fy_p[j * X + i] = (T(0.5) * (fyo + s_fy1[m])) * wy;
+    fy_p[j * X + i] = s_fy1[m] * wy;
     if (i == X - 1) fx_p[j * X1 + X] = T(0);
     if (j == Y - 1) fy_p[Y * X + i] = T(0);
   }
@@ -469,7 +689,7 @@ __device__ void transport_field(
 // Grid: x = tile, y = level, z = shard. HORD: the hord of every field, or 0
 // for fields of different hords (F.hord is read then).
 template <typename T, int HORD>
-__global__ void __launch_bounds__(kThreads, multi_blocks<T, HORD>())
+__global__ void __launch_bounds__(kThreads, multi_blocks<T>())
 fvtp2d_multi_kernel(
     MultiFields<T> F, int h, const T* __restrict__ crx,
     const T* __restrict__ cry, const T* __restrict__ xfx,
@@ -477,13 +697,12 @@ fvtp2d_multi_kernel(
     const T* __restrict__ mfx, const T* __restrict__ mfy, int K, int Y, int X) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  T* s_crx = sm + 2 * NS;
-  T* s_cry = sm + 3 * NS;
-  T* s_xfx = sm + 4 * NS;
-  T* s_yfx = sm + 5 * NS;
-  T* s_area = sm + 6 * NS;
-  T* s_rax = sm + 9 * NS;
-  T* s_ray = sm + 10 * NS;
+  T* s_crx = sm;
+  T* s_cry = sm + NSM;
+  T* s_xfx = sm + 2 * NSM;
+  T* s_yfx = sm + 3 * NSM;
+  T* s_area = sm + 4 * NSM;
+  T* s_buf = sm + 5 * NSM;  // buffer pair p: qx at s_buf + 2p NSM, qy after it
 
   const int tiles_x = (X + TX - 1) / TX;
   const int j0 = (blockIdx.x / tiles_x) * TY;
@@ -496,42 +715,46 @@ fvtp2d_multi_kernel(
   const T* cry_p = cry + lev * Y1 * X;
   const T* yfx_p = yfx + lev * Y1 * X;
   const T* area_p = area + (long long)blockIdx.z * Y * X;
-
-  // --- the shared operands, once for all fields
-  for (int idx = threadIdx.x; idx < NS; idx += kThreads) {
-    const int a = idx / SX;
-    const int b = idx - a * SX;
-    const int gj = wrap(j0 - R + a, Y);
-    const int gi = wrap(i0 - R + b, X);
-    s_crx[idx] = crx_p[gj * X1 + gi];
-    s_xfx[idx] = xfx_p[gj * X1 + gi];
-    s_cry[idx] = cry_p[gj * X + gi];
-    s_yfx[idx] = yfx_p[gj * X + gi];
-    s_area[idx] = area_p[gj * X + gi];
-  }
+  __shared__ Window win;
+  form_window(win, j0, i0, h, Y, X);
   __syncthreads();
-  // --- the updated areas of the two inner sweeps, where those read them
-  for (int idx = threadIdx.x; idx < TY * (SX - 1); idx += kThreads) {
-    const int a = R + idx / (SX - 1);
-    const int m = a * SX + idx - (a - R) * (SX - 1);
-    s_ray[m] = s_area[m] + (s_yfx[m] - s_yfx[m + SX]);
+
+  // the shared operands, once for all fields, then the first two fields
+  if (threadIdx.x < kStageRows * SX) {
+    const int b = threadIdx.x % SX;
+    const int gi = win.gi[b];
+    for (int a = threadIdx.x / SX; a < SY; a += kStageRows) {
+      const int m = a * LD + b;
+      const int gj = win.gj[a];
+      cp_async(s_crx + m, crx_p + gj * X1 + gi);
+      cp_async(s_xfx + m, xfx_p + gj * X1 + gi);
+      cp_async(s_cry + m, cry_p + gj * X + gi);
+      cp_async(s_yfx + m, yfx_p + gj * X + gi);
+      cp_async(s_area + m, area_p + gj * X + gi);
+    }
   }
-  for (int idx = threadIdx.x; idx < (SY - 1) * TX; idx += kThreads) {
-    const int a = idx / TX;
-    const int m = a * SX + R + idx - a * TX;
-    s_rax[m] = s_area[m] + (s_xfx[m] - s_xfx[m + 1]);
-  }
-  // (read after the barriers inside transport_field)
+  auto stage = [&](int f) {
+    T* b = s_buf + 2 * (f & 1) * NSM;
+    const T* qy_p = F.qy[f] + (F.qy_mode[f] ? lev * 4 * h * h : lev * Y * X);
+    stage_field(b, b + NSM, F.qx[f] + lev * Y * X, qy_p, F.qy_mode[f], h, win, X);
+    cp_async_commit();
+  };
+  stage(0);
+  if (F.n > 1) stage(1);
 
   for (int f = 0; f < F.n; ++f) {
-    const T* qx_p = F.qx[f] + lev * Y * X;
-    const T* qy_p = F.qy[f] + (F.qy_mode[f] ? lev * 4 * h * h : lev * Y * X);
+    if (f + 1 < F.n)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    T* b = s_buf + 2 * (f & 1) * NSM;
     const T* wx_p = F.use_mf[f] ? mfx + lev * Y * X1 : nullptr;
     const T* wy_p = F.use_mf[f] ? mfy + lev * Y1 * X : nullptr;
     T* fx_p = F.fx[f] + lev * Y * X1;
     T* fy_p = F.fy[f] + lev * Y1 * X;
 #define PACE_FIELD_ARGS \
-  sm, qx_p, qy_p, F.qy_mode[f], h, wx_p, wy_p, fx_p, fy_p, j0, i0, Y, X
+  sm, b, b + NSM, wx_p, wy_p, fx_p, fy_p, j0, i0, Y, X
     if constexpr (HORD != 0) {
       transport_field<T, HORD>(PACE_FIELD_ARGS);
     } else {
@@ -543,6 +766,7 @@ fvtp2d_multi_kernel(
       }
     }
 #undef PACE_FIELD_ARGS
+    if (f + 2 < F.n) stage(f + 2);
   }
 }
 
@@ -552,7 +776,7 @@ int launch_multi_hord(const MultiFields<T>& F, int h, const void* crx,
                       const void* area, const void* mfx, const void* mfy, int S,
                       int K, int Y, int X, void* stream) {
   const int tiles = ((Y + TY - 1) / TY) * ((X + TX - 1) / TX);
-  const size_t smem = sizeof(T) * kArraysMulti * NS;
+  const size_t smem = sizeof(T) * kArraysMulti * NSM;
   auto kern = fvtp2d_multi_kernel<T, HORD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

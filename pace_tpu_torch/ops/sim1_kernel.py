@@ -7,12 +7,14 @@ floor of ``ops.nonhydro._p_fac_floor`` applied inside; it counts its launches
 in :data:`LAUNCHES`. ``ops.nonhydro.sim1_solver_best`` picks it or the plain
 version by where its operands lie (ops/_dispatch.py).
 
-The kernel keeps the plain version's operation order and sums ``delp``
-sequentially in k. ``pprime = p_full - p_hyd`` cancels two numbers near 1e5
-Pa, so where ``log`` or the cumulative sum of the plain version round
-differently on the card, ``pp`` and ``w`` differ from it by that ulp amplified;
-in float64 on the CPU's sequential sums the two formulations agree to
-round-off.
+A block of the kernel owns :func:`tile_columns` columns and all K levels;
+only the running sum of ``delp`` and the Thomas recurrence walk k, the rest
+is spread over the levels. The kernel keeps the plain version's operation
+order and sums ``delp`` sequentially in k. ``pprime = p_full - p_hyd``
+cancels two numbers near 1e5 Pa, so where ``log`` or the cumulative sum of
+the plain version round differently on the card, ``pp`` and ``w`` differ
+from it by that ulp amplified; in float64 on the CPU's sequential sums the
+two formulations agree to round-off.
 """
 
 from __future__ import annotations
@@ -28,6 +30,32 @@ from ._dispatch import check_operands
 LAUNCHES = {"sim1": 0}
 
 _FN = {torch.float32: "pace_sim1_f32", torch.float64: "pace_sim1_f64"}
+
+
+#: arrays of K values a column that a block keeps in shared memory (and one
+#: value more, the surface velocity)
+SMEM_ARRAYS = 8
+#: shared memory a block may take so that four blocks share an SM (of the
+#: H100's 228 KB, less the 1 KB the card reserves for each block)
+SMEM_PER_BLOCK = 57_344
+#: the most a single block may take
+SMEM_MAX = 232_448
+
+
+def tile_columns(K: int, dtype) -> int:
+    """Columns of one block of the kernel: the widest of 32, 16, ..., 1
+    whose ``SMEM_ARRAYS * K + 1`` values a column fit in ``SMEM_PER_BLOCK``
+    bytes; one column up to ``SMEM_MAX``. Raises where even that does not
+    fit. The kernel's launcher applies the same rule (``csrc/sim1.cu``
+    ``tile_columns``); the wrapper calls this one to refuse what the kernel
+    would refuse, with a message."""
+    per_col = (SMEM_ARRAYS * K + 1) * dtype.itemsize
+    tc = 32
+    while tc > 1 and tc * per_col > SMEM_PER_BLOCK:
+        tc //= 2
+    if tc * per_col > SMEM_MAX:
+        raise ValueError(f"sim1 kernel: {K} levels of {dtype} exceed a block's shared memory")
+    return tc
 
 
 def _fn(dtype):
@@ -56,6 +84,7 @@ def sim1_solver_cuda(w, delz, pt, delp, pkz, ws, dt: float, ptop: float = 0.0,
         + [("ws", ws, (S, Y, X))],
         w,
     )
+    tile_columns(K, w.dtype)
     w_new = torch.empty_like(w)
     delz_new = torch.empty_like(w)
     pp = torch.empty((S, K + 1, Y, X), dtype=w.dtype, device=w.device)

@@ -1,0 +1,208 @@
+"""The sim1 and multi-field transport kernels' CUDA sources, built for the CPU
+by ``tools/cuda_cpu_emulation.py`` and held against the plain versions and
+the single-field kernel.
+
+The card is not here; the emulation runs the kernels' own index arithmetic,
+tiling, shared-memory passes and barriers on CPU tensors (see the tool's
+docstring for what it cannot show). sim1: against ``ops.nonhydro.sim1_solver``
++ ``_p_fac_floor`` at K = 2 on a plane whose column count is no multiple of
+the tile (float32 and float64), at K = 7 (32 columns a block), K = 79 (8)
+and K = 200 (4) in float64, within rtol 1e-12 in float64 and 4 ulp of each
+output's maximum in float32. ``logf`` rounds as the host's C library does,
+not as ``torch.log`` on the CPU, and over many levels the cancelling
+pressure difference amplifies that in float32: deep float32 columns are
+held on the card (``chip_smoke.py``), not here. Multi-field transport:
+equal to the single-field kernel built from the same source for every hord,
+both y-fold forms and 1 to 4 fields, on a plane with interior and edge
+tiles, and to the plain version on the consumed region.
+"""
+
+import ctypes
+import shutil
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pace_tpu_torch import constants
+from pace_tpu_torch.ops import fvtp2d_kernel as fk
+from pace_tpu_torch.ops import nonhydro
+from pace_tpu_torch.ops.folds import CornerPatch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+import cuda_cpu_emulation  # noqa: E402
+
+P_, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to build the CPU emulation")
+    out = tmp_path_factory.mktemp("emu")
+    libs = {}
+    for name in ("sim1", "fvtp2d"):
+        path = cuda_cpu_emulation.build(ROOT / "pace_tpu_torch" / "csrc" / f"{name}.cu",
+                                        out / f"lib{name}.so")
+        libs[name] = ctypes.CDLL(str(path))
+    for f in ("pace_sim1_f32", "pace_sim1_f64"):
+        fn = getattr(libs["sim1"], f)
+        fn.argtypes, fn.restype = [P_] * 6 + [D] * 6 + [P_] * 3 + [I] * 3 + [P_], I
+    for f in ("pace_fvtp2d_multi_f32", "pace_fvtp2d_multi_f64"):
+        fn = getattr(libs["fvtp2d"], f)
+        fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 7 + [I] * 4 + [P_], I
+    for f in ("pace_fvtp2d_f32", "pace_fvtp2d_f64"):
+        fn = getattr(libs["fvtp2d"], f)
+        fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 9 + [I] * 6 + [P_], I
+    return libs
+
+
+def _suffix(dtype):
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+# ---------------------------------------------------------------- sim1
+
+
+def _columns(S, K, Y, X, dtype, seed):
+    """Random columns; in float32 ``delp`` on a 1/4 Pa lattice, where every
+    partial sum is exact: the kernel sums in float32 in sequence, as
+    ``torch.cumsum`` does on the card, but on the CPU ``torch.cumsum`` of a
+    float32 tensor accumulates in float64."""
+    rng = np.random.RandomState(seed)
+    sh = (S, K, Y, X)
+    delp = 50.0 + 100.0 * rng.rand(*sh)
+    if dtype == torch.float32:
+        delp = np.round(4.0 * delp) / 4.0
+    arrays = (2.0 * rng.randn(*sh), -(20.0 + 400.0 * rng.rand(*sh)),
+              270.0 + 40.0 * rng.rand(*sh), delp,
+              0.3 + 0.5 * rng.rand(*sh), 0.5 * rng.randn(S, Y, X))
+    return [torch.from_numpy(a).to(dtype).contiguous() for a in arrays]
+
+
+def _sim1(lib, cols, dt, ptop, p_fac):
+    S, K, Y, X = cols[0].shape
+    w_new, dz_new = torch.empty_like(cols[0]), torch.empty_like(cols[0])
+    pp = torch.empty((S, K + 1, Y, X), dtype=cols[0].dtype)
+    rc = getattr(lib, "pace_sim1_" + _suffix(cols[0].dtype))(
+        *[t.data_ptr() for t in cols], dt, ptop, p_fac, constants.GRAV, constants.RDGAS,
+        1.0 / (1.0 - constants.KAPPA), w_new.data_ptr(), dz_new.data_ptr(), pp.data_ptr(),
+        S, K, Y * X, None)
+    assert rc == 0
+    return w_new, dz_new, pp
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 2, 5, 37), torch.float64), ((2, 2, 5, 37), torch.float32),
+    ((2, 7, 6, 9), torch.float64), ((1, 200, 3, 7), torch.float64),
+    ((1, 79, 3, 11), torch.float64),
+], ids=["K2-f64", "K2-f32", "K7-f64", "K200-f64", "K79-f64"])
+@pytest.mark.parametrize("p_fac", [0.0, 2.0], ids=["no-floor", "floor-binds"])
+def test_sim1_kernel_source_matches_the_plain_version(libs, shape, dtype, p_fac):
+    cols = _columns(*shape, dtype, seed=shape[1])
+    dt, ptop = 4.0, 300.0
+    got = _sim1(libs["sim1"], cols, dt, ptop, p_fac)
+    w_n, dz_n, pp_n = nonhydro.sim1_solver(*cols, dt, ptop)
+    if p_fac > 0:
+        dz_n = nonhydro._p_fac_floor(dz_n, *cols[2:5], ptop, p_fac)
+    ulp = torch.finfo(dtype).eps
+    for name, a, b in zip(("w", "delz", "pp"), got, (w_n, dz_n, pp_n)):
+        scale = float(b.abs().max())
+        if dtype == torch.float64:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+        else:
+            assert float((a - b).abs().max()) <= 4 * ulp * scale, name
+
+
+# --------------------------------------------------- multi-field transport
+
+
+def _operands(S, K, Y, X, dtype, seed):
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(dtype).contiguous()
+
+    crx = t(np.round(rng.uniform(-0.9, 0.9, (S, K, Y, X + 1)), 2))
+    cry = t(np.round(rng.uniform(-0.9, 0.9, (S, K, Y + 1, X)), 2))
+    xfx = t(rng.uniform(-0.2, 0.2, (S, K, Y, X + 1)))
+    yfx = t(rng.uniform(-0.2, 0.2, (S, K, Y + 1, X)))
+    area = t(1.0 + rng.rand(S, Y, X))
+    mfx, mfy = t(rng.randn(S, K, Y, X + 1)), t(rng.randn(S, K, Y + 1, X))
+    return (crx, cry, xfx, yfx, area), mfx, mfy
+
+
+def _field(S, K, Y, X, dtype, seed, patch, h=3):
+    """Values with ties, zeros and negatives (hord 7's limiter acts)."""
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-3, 6, size=(S, K, Y, X)).astype(np.float64)
+    q += np.where(rng.rand(S, K, Y, X) < 0.5, 0.0, rng.randn(S, K, Y, X))
+    qy = rng.randn(S, K, 2 * h, 2 * h) if patch else q + 0.1 * rng.randn(S, K, Y, X)
+    qx, qy = (torch.from_numpy(a).to(dtype).contiguous() for a in (q, qy))
+    return qx, (CornerPatch(qy) if patch else qy)
+
+
+def _multi(lib, fields, ops, mfx, mfy):
+    qx0 = fields[0][0]
+    S, K, Y, X = qx0.shape
+    ptrs, modes, outs, h = [], [], [], 0
+    for qx, qy, hord, use_mf in fields:
+        patch = isinstance(qy, CornerPatch)
+        qy_t = qy.data if patch else qy
+        h = qy_t.shape[-1] // 2 if patch else h
+        fx = torch.full((S, K, Y, X + 1), 7.0, dtype=qx0.dtype)
+        fy = torch.full((S, K, Y + 1, X), 7.0, dtype=qx0.dtype)
+        outs.append((fx, fy))
+        ptrs += [qx.data_ptr(), qy_t.data_ptr(), fx.data_ptr(), fy.data_ptr()]
+        modes += [int(patch), hord, int(use_mf)]
+    rc = getattr(lib, "pace_fvtp2d_multi_" + _suffix(qx0.dtype))(
+        (P_ * len(ptrs))(*ptrs), (I * len(modes))(*modes), len(fields), h,
+        *[t.data_ptr() for t in ops], mfx.data_ptr(), mfy.data_ptr(), S, K, Y, X, None)
+    assert rc == 0
+    return outs
+
+
+def _single(lib, field, ops, mfx, mfy):
+    qx, qy, hord, use_mf = field
+    S, K, Y, X = qx.shape
+    patch = isinstance(qy, CornerPatch)
+    qy_t = qy.data if patch else qy
+    fx = torch.full((S, K, Y, X + 1), 7.0, dtype=qx.dtype)
+    fy = torch.full((S, K, Y + 1, X), 7.0, dtype=qx.dtype)
+    rc = getattr(lib, "pace_fvtp2d_" + _suffix(qx.dtype))(
+        qx.data_ptr(), qy_t.data_ptr(), int(patch), qy_t.shape[-1] // 2 if patch else 0,
+        *[t.data_ptr() for t in ops], mfx.data_ptr() if use_mf else None,
+        mfy.data_ptr() if use_mf else None, fx.data_ptr(), fy.data_ptr(), S, 1, K, Y, X, hord,
+        None)
+    assert rc == 0
+    return fx, fy
+
+
+CASES = {
+    "dsw-trio": [(6, True, False), (6, False, True), (6, True, False)],
+    "hydrostatic-pair": [(6, True, False), (6, False, True)],
+    "mixed-four": [(8, False, False), (7, True, True), (1, False, False), (5, True, False)],
+    "hord8": [(8, True, True)],
+    "hord7-pair": [(7, False, False), (7, True, True)],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_multi_kernel_source_equals_single_field_kernel_and_plain(libs, case, dtype):
+    S, K, Y, X = 1, 1, 70, 70  # 15 tiles, 3 of them interior
+    ops, mfx, mfy = _operands(S, K, Y, X, dtype, seed=len(CASES[case]))
+    fields = []
+    for n, (hord, use_mf, patch) in enumerate(CASES[case]):
+        qx, qy = _field(S, K, Y, X, dtype, 10 * n + hord, patch)
+        fields.append((qx, qy, hord, use_mf))
+    got = _multi(libs["fvtp2d"], fields, ops, mfx, mfy)
+    plain = fk.fvtp2d_multi_plain(fields, *ops, mfx=mfx, mfy=mfy)
+    for field, (fx, fy), (px, py) in zip(fields, got, plain):
+        sx, sy = _single(libs["fvtp2d"], field, ops, mfx, mfy)
+        assert torch.equal(fx, sx) and torch.equal(fy, sy), field[2]
+        for a, b in ((fx, px), (fy, py)):
+            assert torch.equal(a[..., 3:-3, 3:-3], b[..., 3:-3, 3:-3]), field[2]

@@ -1,31 +1,40 @@
 #!/usr/bin/env python3
-"""Time an earlier revision's remap and nh_p_grad kernels against the
-current ones on one NVIDIA card, in turns, at the dycore step's shapes.
+"""Time an earlier revision's remap, nh_p_grad, sim1 and multi-field
+transport kernels against the current ones on one NVIDIA card, in turns, at
+the dycore step's shapes.
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
     mkdir -p build/prev
-    git show <rev>:pace_tpu_torch/csrc/remap.cu > build/prev/remap.cu
-    git show <rev>:pace_tpu_torch/csrc/pgrad.cu > build/prev/pgrad.cu
-    python3 tools/torch_kernel_ab.py --prev build/prev
+    for f in remap pgrad sim1 fvtp2d; do
+        git show <rev>:pace_tpu_torch/csrc/$f.cu > build/prev/$f.cu
+    done
+    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels sim1,fvtp2d]
 
-The earlier sources must export the C functions the current wrappers call
-(``pace_remap_f32`` ..., ``pace_pgrad_f32`` ...). Both revisions are built
-with ``_build.NVCC_FLAGS`` and their ``-Xptxas -v`` lines printed (the
-earlier ones into ``build/kernels/prev``, which ``.gitignore`` lists). Each
-kernel then runs through its own wrapper on the same inputs, C192 npz=79 f32
-by default, in the order earlier, current, current, earlier: CUDA-event
-means of 20 launches (the tracer block 5), the bytes of the kernel's bound
-over its time, and whether the two revisions give the same bits. The pgrad
-inputs are one acoustic substep's (``demos/acoustic_substep``), the remap's
-the pressure columns after one acoustic loop of the dycore step, as in
-``chip_smoke.py``.
+``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, halo`` (default all);
+the earlier directory needs the sources of the kernels picked. The earlier
+sources must export the C functions the current wrappers call
+(``pace_remap_f32`` ..., ``pace_pgrad_f32`` ..., ``pace_sim1_f32`` ...,
+``pace_fvtp2d_multi_f32`` ...) with the current arguments. Both revisions
+are built with ``_build.NVCC_FLAGS`` and their ``-Xptxas -v`` lines printed
+(the earlier ones into ``build/kernels/prev``, which ``.gitignore`` lists).
+Each kernel then runs through its own wrapper on the same inputs, C192
+npz=79 f32 by default, in the order earlier, current, current, earlier:
+CUDA-event means of 20 launches (the tracer block 5), the bytes of the
+kernel's bound over its time, and whether the two revisions give the same
+bits. The pgrad inputs are one acoustic substep's
+(``demos/acoustic_substep``), the remap's the pressure columns after one
+acoustic loop of the dycore step, as in ``chip_smoke.py``. sim1 takes
+``chip_smoke.py``'s C-grid operands (one nonhydrostatic C-grid half step,
+as ``riem_solver_c`` calls it; ``riem_solver3`` calls it at the same
+shapes), the multi-field transport d_sw's pt / vorticity / w of one acoustic
+substep; both also in float64 on the same inputs (means of 5 launches).
 
-Then the halo exchange plan that launches most often in one dycore step
-(``demos/dycore_step``, with a seeded tracer block): launches per step by
-plan, that plan's time per call and per launch, its bound, and one
-``torch.take`` per output over the inputs and their negatives laid end to
-end (built before the timing), checked equal to the plain exchange.
+With ``halo`` picked, the halo exchange plan that launches most often in one
+dycore step (``demos/dycore_step``, with a seeded tracer block): launches
+per step by plan, that plan's time per call and per launch, its bound, and
+one ``torch.take`` per output over the inputs and their negatives laid end
+to end (built before the timing), checked equal to the plain exchange.
 
 Prints ``[build]``, ``[ab]`` and ``[halo]`` lines and the card's name and
 power limit (``nvidia-smi``). Needs one card; exits non-zero without one.
@@ -53,15 +62,15 @@ log = chip_smoke.log
 time_ms = chip_smoke.time_ms
 nbytes = chip_smoke.nbytes
 
-KERNELS = ("remap", "pgrad")
+KERNELS = ("remap", "pgrad", "sim1", "fvtp2d")
 
 
-def build_prev(prev_dir: str):
+def build_prev(prev_dir: str, names):
     """The earlier sources built with the current flags: ``{name: CDLL}``."""
     out_dir = _build.BUILD_DIR / "prev"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in KERNELS:
+    for name in names:
         out = out_dir / f"libprev_{name}.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
                os.path.join(prev_dir, _build.SOURCES[name])]
@@ -81,7 +90,8 @@ def build_prev(prev_dir: str):
 
 def in_turns(label, libs, name, call, reps, moved):
     """``call`` with the earlier and the current library of ``name`` in
-    turns; logs the times and whether the outputs agree bit for bit."""
+    turns; logs the times and whether the outputs agree bit for bit.
+    ``call`` may return a tensor or a (nested) sequence of tensors."""
     order = ("earlier", "current", "current", "earlier")
     outs, times = {}, []
     for which in order:
@@ -89,9 +99,8 @@ def in_turns(label, libs, name, call, reps, moved):
         outs.setdefault(which, call())
         times.append(time_ms(call, reps))
     _build._LIBS[name] = libs["current"]
-    a, b = outs["earlier"], outs["current"]
-    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
-    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    a, b = flat(outs["earlier"]), flat(outs["current"])
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
     earlier = (times[0] + times[3]) / 2
     current = (times[1] + times[2]) / 2
     log(f"[ab] {label}: earlier {times[0]:.4f} / {times[3]:.4f} ms, current {times[1]:.4f} / "
@@ -101,51 +110,145 @@ def in_turns(label, libs, name, call, reps, moved):
     return same
 
 
-def remap_and_pgrad(prev_dir, n, npz, dev):
+def flat(out):
+    """The tensors of a (nested) sequence, in order."""
+    if torch.is_tensor(out):
+        return [out]
+    return [t for o in out for t in flat(o)]
+
+
+def build_both(prev_dir, names):
+    """Both revisions of ``names``: ``{name: {"earlier": CDLL, "current": CDLL}}``."""
+    t0 = time.perf_counter()
+    _build.build(list(names))
+    for name in names:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] current {name}: {line.strip()}")
+    prev = build_prev(prev_dir, names)
+    log(f"[build] both revisions in {time.perf_counter() - t0:.1f} s")
+    return {name: {"earlier": prev[name], "current": _build.library(name)} for name in names}
+
+
+def sim1_operands(n, npz, dev):
+    """chip_smoke.py's C-grid sim1 operands, as riem_solver_c passes them
+    after one nonhydrostatic C-grid half step: ``(w, delz, pt, delp, pkz,
+    ws), dt2, ptop, p_fac``."""
+    from pace_tpu_torch.demos import cgrid_half_step as cdemo
+
+    ncase = cdemo.build_case(n, npz, device=dev, dtype=torch.float32, hydrostatic=False)
+    nhalf = cdemo.step(ncase)
+    zh = nhalf.zh_c
+    s_args = (nhalf.w_x, zh[:, 1:] - zh[:, :-1], nhalf.cg.ptc, nhalf.cg.delpc, nhalf.pkz_c,
+              nhalf.ws_c)
+    return s_args, ncase.dt2, ncase.grid.ptop, ncase.config.p_fac
+
+
+def transport_operands(n, npz, dev):
+    """d_sw's pt / vorticity / w of one acoustic substep and their shared
+    operands ``(crx, cry, xfx, yfx, area, mfx, mfy)``, as chip_smoke.py
+    builds them."""
+    from pace_tpu_torch.demos import acoustic_substep as sdemo
+    from pace_tpu_torch.ops import d_sw as d_sw_ops
+    from pace_tpu_torch.ops.folds import CornerPatch
+    from pace_tpu_torch.ops.fvtp2d import fvtp2d_best
+    from pace_tpu_torch.ops.fxadv import flux_prep_x, flux_prep_y
+
+    scase = sdemo.build_case(n, npz, device=dev, dtype=torch.float32)
+    sgrid, shalo, scfg = scase.grid, scase.halo, scase.config.d_sw
+    dt = 2.0 * scase.dt2
+    chalf, _dhalf = sdemo.step(scase)
+    crx, xfx, _ut = flux_prep_x(chalf.uc_x, chalf.vc_x, sgrid, dt)
+    cry, yfx, _vt = flux_prep_y(chalf.uc_y, chalf.vc_y, sgrid, dt)
+    vort = d_sw_ops.absolute_vorticity_centers(chalf.u_y, chalf.v_x, sgrid)
+    vort_x, vort_p = shalo.update_scalar_fold_patch(vort)
+    fl = fvtp2d_best(chalf.delp_x, chalf.delp_y, crx, cry, xfx, yfx, sgrid.area, scfg.hord_dp)
+    mfx, mfy = shalo.sync_vector_interfaces(fl.fx, fl.fy, kind="cgrid")
+    trio = [(chalf.pt_x, chalf.pt_y, scfg.hord_tm, True),
+            (vort_x, CornerPatch(vort_p), scfg.hord_vt, False),
+            (chalf.w_x, chalf.w_y, scfg.hord_vt, True)]
+    return trio, (crx, cry, xfx, yfx, sgrid.area, mfx, mfy)
+
+
+def sim1_and_multi(libs, n, npz, dev):
+    """sim1 on chip_smoke.py's C-grid operands and the multi-field transport
+    on d_sw's trio, in float32 (timed) and float64 (the bits)."""
+    from pace_tpu_torch.ops import fvtp2d_kernel as fk
+    from pace_tpu_torch.ops import sim1_kernel as s1k
+    from pace_tpu_torch.ops.folds import CornerPatch
+
+    f32, f64 = torch.float32, torch.float64
+    ok = True
+    if "sim1" in libs:
+        s_args, dt2, ptop, p_fac = sim1_operands(n, npz, dev)
+        for dtype, reps in ((f32, 20), (f64, 5)):
+            args = [t.to(dtype).contiguous() for t in s_args]
+            S, K, Y, X = args[0].shape
+            tc = s1k.tile_columns(K, dtype)
+            out_bytes = (2 * K + K + 1) * S * Y * X * args[0].element_size()  # w, delz, pp
+            ok &= in_turns(f"sim1 {tuple(args[0].shape)} {str(dtype)[6:]} ({tc} columns a "
+                           f"block)", libs["sim1"], "sim1",
+                           lambda: s1k.sim1_solver_cuda(*args, dt2, ptop, p_fac=p_fac), reps,
+                           nbytes(*args) + out_bytes)
+            del args
+        del s_args
+        torch.cuda.empty_cache()
+    if "fvtp2d" in libs:
+        trio, ops = transport_operands(n, npz, dev)
+        for dtype, reps in ((f32, 20), (f64, 5)):
+            o = [t.to(dtype).contiguous() for t in ops]
+            fields = [(qx.to(dtype), CornerPatch(qy.data.to(dtype)), h, m)
+                      for qx, qy, h, m in trio]
+            q_in = [t for qx, qy, _h, _m in fields for t in (qx, qy.data)]
+            moved = nbytes(*o, *q_in) + len(fields) * nbytes(o[0], o[1])  # + fx, fy
+            ok &= in_turns(f"fvtp2d multi 3 x {tuple(trio[0][0].shape)} {str(dtype)[6:]} "
+                           f"hord {[t[2] for t in trio]}", libs["fvtp2d"], "fvtp2d",
+                           lambda: fk.fvtp2d_multi_cuda(fields, *o[:5], mfx=o[5], mfy=o[6]),
+                           reps, moved)
+            del o, fields
+        del trio, ops
+        torch.cuda.empty_cache()
+    return ok
+
+
+def remap_and_pgrad(libs, n, npz, dev):
     from pace_tpu_torch.demos import acoustic_substep as sdemo
     from pace_tpu_torch.demos import dycore_step as ddemo
     from pace_tpu_torch.models.fv3.acoustics import acoustic_loop
     from pace_tpu_torch.ops import pgrad_kernel as pgk
     from pace_tpu_torch.ops import remap_kernel as rmk
 
-    t0 = time.perf_counter()
-    _build.build(list(KERNELS))
-    for name in KERNELS:
-        for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] current {name}: {line.strip()}")
-    prev = build_prev(prev_dir)
-    libs = {name: {"earlier": prev[name], "current": _build.library(name)} for name in KERNELS}
-    log(f"[build] both revisions in {time.perf_counter() - t0:.1f} s")
     f32 = torch.float32
     ok = True
+    if "pgrad" in libs:
+        scase = sdemo.build_case(n, npz, device=dev, dtype=f32)
+        _chalf, dhalf = sdemo.step(scase)
+        S, K, Y, X = dhalf.delp.shape
+        p_args = (dhalf.u, dhalf.v, dhalf.pk, dhalf.gz, dhalf.pp, dhalf.delp, scase.grid,
+                  2.0 * scase.dt2)
+        consts = [t for _n, t, _s in pgk.grid_operands(scase.grid, S, Y, X)]
+        moved = nbytes(*p_args[:6], *consts, dhalf.u, dhalf.v)
+        ok &= in_turns(f"nh_p_grad {tuple(dhalf.delp.shape)} f32", libs["pgrad"], "pgrad",
+                       lambda: pgk.nh_p_grad_cuda(*p_args), 20, moved)
+        del scase, dhalf, p_args, consts
+        torch.cuda.empty_cache()
 
-    scase = sdemo.build_case(n, npz, device=dev, dtype=f32)
-    _chalf, dhalf = sdemo.step(scase)
-    S, K, Y, X = dhalf.delp.shape
-    p_args = (dhalf.u, dhalf.v, dhalf.pk, dhalf.gz, dhalf.pp, dhalf.delp, scase.grid,
-              2.0 * scase.dt2)
-    consts = [t for _n, t, _s in pgk.grid_operands(scase.grid, S, Y, X)]
-    moved = nbytes(*p_args[:6], *consts, dhalf.u, dhalf.v)
-    ok &= in_turns(f"nh_p_grad {tuple(dhalf.delp.shape)} f32", libs["pgrad"], "pgrad",
-                   lambda: pgk.nh_p_grad_cuda(*p_args), 20, moved)
-    del scase, dhalf, p_args, consts
-    torch.cuda.empty_cache()
-
-    case = ddemo.build_case(n, npz, device=dev, dtype=f32)
-    st, cfg = case.state, case.core.config
-    res = acoustic_loop(st.u, st.v, st.w, st.delp, st.pt, st.phis, case.grid, case.halo,
-                        cfg.acoustic(), ddemo.TIMESTEP / cfg.k_split, delz=st.delz)
-    pe1 = torch.cat([torch.full_like(res.delp[:, :1], case.grid.ptop),
-                     case.grid.ptop + torch.cumsum(res.delp, dim=1)], dim=1)
-    pe2 = (case.grid.ak[None, :, None, None] + case.grid.bk[None, :, None, None] * pe1[:, -1:])
-    qblock = chip_smoke.seeded_tracers(st.q, 0)
-    ok &= in_turns(f"remap {tuple(res.pt.shape)} f32 kord -9", libs["remap"], "remap",
-                   lambda: rmk.remap_cuda(res.pt, pe1, pe2, -9), 20,
-                   nbytes(res.pt, pe1, pe2, res.pt))
-    ok &= in_turns(f"remap tracer block {tuple(qblock.shape)} f32 kord 9", libs["remap"],
-                   "remap", lambda: rmk.remap_cuda(qblock, pe1[:, None], pe2[:, None], 9), 5,
-                   nbytes(qblock, pe1, pe2, qblock))
+    if "remap" in libs:
+        case = ddemo.build_case(n, npz, device=dev, dtype=f32)
+        st, cfg = case.state, case.core.config
+        res = acoustic_loop(st.u, st.v, st.w, st.delp, st.pt, st.phis, case.grid, case.halo,
+                            cfg.acoustic(), ddemo.TIMESTEP / cfg.k_split, delz=st.delz)
+        pe1 = torch.cat([torch.full_like(res.delp[:, :1], case.grid.ptop),
+                         case.grid.ptop + torch.cumsum(res.delp, dim=1)], dim=1)
+        pe2 = (case.grid.ak[None, :, None, None]
+               + case.grid.bk[None, :, None, None] * pe1[:, -1:])
+        qblock = chip_smoke.seeded_tracers(st.q, 0)
+        ok &= in_turns(f"remap {tuple(res.pt.shape)} f32 kord -9", libs["remap"], "remap",
+                       lambda: rmk.remap_cuda(res.pt, pe1, pe2, -9), 20,
+                       nbytes(res.pt, pe1, pe2, res.pt))
+        ok &= in_turns(f"remap tracer block {tuple(qblock.shape)} f32 kord 9", libs["remap"],
+                       "remap", lambda: rmk.remap_cuda(qblock, pe1[:, None], pe2[:, None], 9),
+                       5, nbytes(qblock, pe1, pe2, qblock))
     return ok
 
 
@@ -219,10 +322,18 @@ def halo_census(n, npz, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--prev", required=True, help="directory of the earlier remap.cu, pgrad.cu")
+    ap.add_argument("--prev", required=True,
+                    help="directory of the earlier sources (remap.cu, pgrad.cu, sim1.cu, "
+                         "fvtp2d.cu)")
+    ap.add_argument("--kernels", default=",".join(KERNELS + ("halo",)),
+                    help="comma-separated: remap, pgrad, sim1, fvtp2d, halo (default all)")
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--npz", type=int, default=79)
     args = ap.parse_args()
+    picked = [k.strip() for k in args.kernels.split(",") if k.strip()]
+    unknown = sorted(set(picked) - set(KERNELS + ("halo",)))
+    if unknown:
+        ap.error(f"unknown kernels {unknown}")
     if not torch.cuda.is_available():
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
@@ -231,9 +342,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(f"card: {smi}")
-    ok = remap_and_pgrad(args.prev, args.n, args.npz, dev)
+    libs = build_both(args.prev, [k for k in KERNELS if k in picked])
+    ok = sim1_and_multi(libs, args.n, args.npz, dev)
     torch.cuda.empty_cache()
-    halo_census(args.n, args.npz, dev)
+    ok &= remap_and_pgrad(libs, args.n, args.npz, dev)
+    torch.cuda.empty_cache()
+    if "halo" in picked:
+        halo_census(args.n, args.npz, dev)
     print(smi)
     return 0 if ok else 1
 

@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Time the tuning candidates of the sim1 and multi-field transport kernels
+on one NVIDIA card, at the dycore step's shapes.
+
+Each candidate is the current source (``pace_tpu_torch/csrc/sim1.cu`` or
+``fvtp2d.cu``) with one or two of its tuning constants changed (``CANDIDATES``
+below: tile width and blocks an SM for sim1, segment lengths and blocks an
+SM for the transport), built with ``_build.NVCC_FLAGS`` into
+``build/kernels/variants`` (gitignored), and run through the current
+wrapper on the inputs of ``tools/torch_kernel_ab.py`` (C192 npz=79 f32:
+sim1 on one nonhydrostatic C-grid half step's operands, the transport on
+d_sw's pt / vorticity / w). Two rounds of CUDA-event means of 20 launches,
+the current build first in each, and whether each candidate gives the
+current build's bits. Run from the repository root on a machine with a
+card and ``nvcc``::
+
+    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d]
+
+Prints ``[build]`` lines (registers and spills), ``[variant]`` lines and the
+card's name and power limit. ``DIAGNOSTICS`` adds builds that leave a part of
+a kernel out, to time the rest (their bits differ). A candidate whose text
+is not in the source raises: the tables follow the source.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "tools"))
+
+import chip_smoke  # noqa: E402
+import torch_kernel_ab as ab  # noqa: E402
+from pace_tpu_torch import _build  # noqa: E402
+
+log = chip_smoke.log
+
+_SIM1_THREADS = "constexpr int kThreads = 256;"
+_SIM1_BLOCKS = "constexpr int kBlocksPerSM = 4;"
+_SIM1_SMEM = "constexpr long long kSmemPerBlock = 57344;"
+_SEG_IN = "constexpr int kSegIn = 3;"
+_SEG_OUT = "constexpr int kSegOut = 2;"
+_MULTI_BLOCKS = "return sizeof(T) == 8 ? 2 : 4;"
+
+
+def _sim1(blocks, smem, threads=256):
+    return [(_SIM1_BLOCKS, f"constexpr int kBlocksPerSM = {blocks};"),
+            (_SIM1_SMEM, f"constexpr long long kSmemPerBlock = {smem};"),
+            (_SIM1_THREADS, f"constexpr int kThreads = {threads};")]
+
+
+def _multi(seg_in, seg_out, blocks):
+    return [(_SEG_IN, f"constexpr int kSegIn = {seg_in};"),
+            (_SEG_OUT, f"constexpr int kSegOut = {seg_out};"),
+            (_MULTI_BLOCKS, f"return sizeof(T) == 8 ? 2 : {blocks};")]
+
+
+_SIM1_CHAIN = "  if (tid < nc) {\n    T cp = T(0), dv = T(0), b_up = T(0);"
+_FIELD_START = ("  const int X1 = X + 1;\n  const int tid = threadIdx.x;\n\n"
+                "  // inner sweeps: fx1 of qx along rows")
+_STAGE_QX = "    cp_async(s_qx + m, src);"
+_STAGE_QY = "    cp_async(s_qy + m, src);"
+_STAGE_OPS = "      cp_async(s_crx + m, crx_p + gj * X1 + gi);"
+
+#: diagnostics that time a part of a kernel (their results are wrong): sim1
+#: without its serial recurrence; the transport with its loads and barriers
+#: alone (each field returns at once), and with its passes alone (no field
+#: and only one shared operand loaded: the passes run on stale shared memory)
+DIAGNOSTICS = {
+    "sim1": {
+        "diagnostic: without the recurrence": [
+            (_SIM1_CHAIN, _SIM1_CHAIN.replace("tid < nc", "tid < 0"))],
+    },
+    "fvtp2d": {
+        "diagnostic: loads and barriers alone": [
+            (_FIELD_START, _FIELD_START.replace(
+                "threadIdx.x;\n", "threadIdx.x;\n  if (tid == 0 && s_qx[0] == T(12345)) "
+                "fx_p[0] = s_qy[1];\n  __syncthreads();\n  return;\n"))],
+        "diagnostic: passes alone": [
+            (_STAGE_QX, "    (void)src;"), (_STAGE_QY, "    (void)src;"),
+            (_STAGE_OPS, "      (void)gj;")],
+    },
+}
+
+#: name -> (source name, substitutions); the current source is "current":
+#: sim1 16 columns a block at K = 79, four blocks an SM; the transport
+#: segments of 3 and 2 interfaces, four blocks an SM
+CANDIDATES = {
+    "sim1": {
+        "32 columns, 2 blocks an SM": _sim1(2, 115712),
+        "16 columns, 5 blocks an SM": _sim1(5, 45670),
+        "8 columns, 6 blocks an SM": _sim1(6, 37888),
+        "16 columns, 192 threads, 5 blocks an SM": _sim1(5, 45670, 192),
+        "16 columns, 128 threads, 5 blocks an SM": _sim1(5, 45670, 128),
+    },
+    "fvtp2d": {
+        "segments 6 / 4, 4 blocks an SM": _multi(6, 4, 4),
+        "segments 6 / 4, 3 blocks an SM": _multi(6, 4, 3),
+        "segments 4 / 4, 4 blocks an SM": _multi(4, 4, 4),
+        "segments 2 / 2, 4 blocks an SM": _multi(2, 2, 4),
+        "segments 3 / 2, 3 blocks an SM": _multi(3, 2, 3),
+        "segments 3 / 2, 5 blocks an SM": _multi(3, 2, 5),
+        "segments 1 / 1, 6 blocks an SM": _multi(1, 1, 6),
+    },
+}
+
+
+def build_candidates(name):
+    """``{candidate: CDLL}`` of the candidates of kernel ``name``, built in
+    parallel."""
+    src = (_build.CSRC / _build.SOURCES[name]).read_text()
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, (label, subs) in enumerate({**CANDIDATES[name], **DIAGNOSTICS[name]}.items()):
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"{name} candidate {label!r}: {old!r} is not in the source")
+            text = text.replace(old, new)
+        cu = out_dir / f"{name}_{n}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"lib{name}_{n}.so"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), lib)
+    libs = {}
+    for label, (p, lib) in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"{name} candidate {label!r} failed to build:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name} {label}: {line.strip()}")
+        libs[label] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def time_candidates(name, call, libs):
+    """Two rounds over the current build and the candidates."""
+    current = _build.library(name)
+    order = {"current": current, **libs}
+    ref = None
+    for rnd in (1, 2):
+        for label, lib in order.items():
+            _build._LIBS[name] = lib
+            out = ab.flat(call())
+            ref = ref if ref is not None else out
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            log(f"[variant] {name} {label} (round {rnd}): {chip_smoke.time_ms(call, 20):.4f} ms, "
+                f"the current build's bits: {same}")
+    _build._LIBS[name] = current
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="sim1,fvtp2d")
+    ap.add_argument("--n", type=int, default=192)
+    ap.add_argument("--npz", type=int, default=79)
+    args = ap.parse_args()
+    picked = [k.strip() for k in args.kernels.split(",") if k.strip()]
+    if not set(picked) <= set(CANDIDATES):
+        ap.error(f"--kernels picks from {sorted(CANDIDATES)}")
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {smi}")
+    _build.build(picked)
+    if "sim1" in picked:
+        from pace_tpu_torch.ops import sim1_kernel as s1k
+
+        s_args, dt2, ptop, p_fac = ab.sim1_operands(args.n, args.npz, dev)
+        time_candidates("sim1", lambda: s1k.sim1_solver_cuda(*s_args, dt2, ptop, p_fac=p_fac),
+                        build_candidates("sim1"))
+        del s_args
+        torch.cuda.empty_cache()
+    if "fvtp2d" in picked:
+        from pace_tpu_torch.ops import fvtp2d_kernel as fk
+
+        trio, ops = ab.transport_operands(args.n, args.npz, dev)
+        time_candidates("fvtp2d", lambda: fk.fvtp2d_multi_cuda(trio, *ops[:5], mfx=ops[5],
+                                                               mfy=ops[6]),
+                        build_candidates("fvtp2d"))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
