@@ -422,6 +422,16 @@ def profile_steps(label, step_fn, wall_ms, top=10, calls=2):
         log(f"[profile] {label}: the profiler recorded no device time: not measured")
 
 
+def away_from_cube_corners(grid, shape, device):
+    """A boolean mask of ``shape`` (a D-grid tail output, ``(S, K, ., .)``):
+    false on the points within one row and column of a cube corner of the
+    grid's corner table (any shard), true elsewhere."""
+    far = torch.ones(shape[-2:], dtype=torch.bool, device=device)
+    for _kind, jj, ii, _own in grid.corner_table:
+        far[max(jj - 1, 0):jj + 2, max(ii - 1, 0):ii + 2] = False
+    return far.expand(shape)
+
+
 def consumed(t):
     """The consumed region of an interface flux: all but the outer 3 rows
     and columns (the never-consumed outermost ring and the stencil wrap)."""
@@ -600,33 +610,73 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     results["fvtp2d"]["max_abs_err"] = fv_err
 
-    # --- fvtp2d tracer block, nq=9, hord 8, mass-flux weights
+    # --- fvtp2d tracer block, nq=9, hord 8, mass-flux weights: bit-identical
+    #     to the plain version on the consumed region and to single-field
+    #     launches tracer by tracer, also at nq=4 and on a ragged 5 x 37 plane
     qx, qp = case.halo.update_scalar_fold_patch(q)
     targs = (qx, CornerPatch(qp), crx, cry, xfx, yfx, grid.area, mfx, mfy, 8)
-    fx, fy = fk.fvtp2d_tracer_cuda(*targs)
-    rx, ry = fk.fvtp2d_tracer_plain(*targs)
-    torch.cuda.synchronize()
+
+    def tracer_against_single(label, args):
+        got = fk.fvtp2d_tracer_cuda(*args)
+        qy = args[1]
+        for t in range(args[0].shape[1]):
+            qy_t = (CornerPatch(qy.data[:, t].contiguous()) if isinstance(qy, CornerPatch)
+                    else qy[:, t].contiguous())
+            single = fk.fvtp2d_cuda(args[0][:, t].contiguous(), qy_t, *args[2:7], args[9],
+                                    mfx=args[7], mfy=args[8])
+            for nm, a, b in zip(("fx", "fy"), got, single):
+                if not torch.equal(a[:, t], b):
+                    raise AssertionError(f"fvtp2d tracer {label} {nm} tracer {t}: differs from "
+                                         f"the single-field launch at "
+                                         f"{int((a[:, t] != b).sum())} points")
+        log(f"[check] fvtp2d tracer {label}: equal to the single-field launches, tracer by "
+            f"tracer, on the whole plane")
+        return got
+
     tr_err = 0.0
-    for nm, a, b in (("fx", fx, rx), ("fy", fy, ry)):
-        a, b = consumed(a), consumed(b)
-        err = (a - b).abs()
-        scale = float(b.abs().max())
-        n_bad = int((err > 4 * ulp * scale).sum())
-        e = float(err.max())
-        log(f"[check] fvtp2d tracer nq={nq} hord 8 {nm}: max abs err {e:.3e}, max rel err "
-            f"{e / scale:.3e} of max|flux| {scale:.3e}, points beyond 4 ulp: {n_bad}")
-        if n_bad:
-            raise AssertionError(f"fvtp2d tracer {nm}: {n_bad} points beyond 4 ulp")
-        tr_err = max(tr_err, e)
+    for label, args in ((f"nq={nq} hord 8 {tuple(qx.shape)}", targs),
+                        (f"nq=4 hord 8 {tuple(qx[:, :4].shape)}",
+                         (qx[:, :4].contiguous(), CornerPatch(qp[:, :4].contiguous()),
+                          *targs[2:]))):
+        fx, fy = tracer_against_single(label, args)
+        rx, ry = fk.fvtp2d_tracer_plain(*args)
+        torch.cuda.synchronize()
+        for nm, a, b in (("fx", fx, rx), ("fy", fy, ry)):
+            a, b = consumed(a), consumed(b)
+            e = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            n_diff = log_identical(f"fvtp2d tracer {label} {nm} (consumed region; max abs err "
+                                   f"{e:.3e} of max|flux| {scale:.3e})", a, b)
+            if n_diff:
+                raise AssertionError(f"fvtp2d tracer {label} {nm}: {n_diff} points differ from "
+                                     f"the plain version")
+            tr_err = max(tr_err, e)
+        del fx, fy, rx, ry
+    # a plane that is no multiple of the tile, K = 2, the corner pack (h = 2)
+    # and a full y fold
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    sS, sK, sY, sX = 2, 2, 5, 37
+    s_ops = (rnd(sS, sK, sY, sX + 1, lo=-0.9, hi=0.9), rnd(sS, sK, sY + 1, sX, lo=-0.9, hi=0.9),
+             rnd(sS, sK, sY, sX + 1, lo=-0.2, hi=0.2), rnd(sS, sK, sY + 1, sX, lo=-0.2, hi=0.2),
+             rnd(sS, sY, sX, lo=1.0, hi=2.0), rnd(sS, sK, sY, sX + 1), rnd(sS, sK, sY + 1, sX))
+    s_q = rnd(sS, 4, sK, sY, sX, lo=0.0, hi=1.0)
+    for form, s_qy in (("corner pack h=2", CornerPatch(rnd(sS, 4, sK, 4, 4, lo=0.0, hi=1.0))),
+                       ("full y fold", rnd(sS, 4, sK, sY, sX, lo=0.0, hi=1.0))):
+        tracer_against_single(f"nq=4 hord 8 {tuple(s_q.shape)} {form}", (s_q, s_qy, *s_ops, 8))
     ms = time_ms(lambda: fk.fvtp2d_tracer_cuda(*targs), 10)
     plain_ms = time_ms(lambda: fk.fvtp2d_tracer_plain(*targs), 2)
-    byt = nbytes(qx, qp, crx, cry, xfx, yfx, grid.area, mfx, mfy, fx, fy)
+    byt = nbytes(qx, qp, crx, cry, xfx, yfx, grid.area, mfx, mfy) + nq * nbytes(crx, cry)
     b_ms, b_by = bound(byt, FVTP2D_OPS_PER_POINT[8] * qx.numel(), torch.float32)
     results["fvtp2d_tracer"] = dict(max_abs_err=tr_err, ms=ms, plain_ms=plain_ms,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"[time] fvtp2d tracer hord 8 {tuple(qx.shape)} f32: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    del fx, fy, rx, ry, fxq, fyq, take_idx, qx, qp
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the "
+        f"kernel's time, {byt / ms / 1e6:.1f} GB/s of the bound's bytes")
+    del fxq, fyq, take_idx, qx, qp, s_ops, s_q, targs
 
     # --- one step, kernel path against the plain path on the card
     def plain_exchange(inputs, plan):
@@ -1034,6 +1084,14 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             t_err[nm] = check_close(f"d_sw tail ({label}) {nm} (compute domain)", ring(a, 3),
                                     ring(b, 3), 4 * ulp * float(ring(b, 3).abs().max()))
             log_identical(f"d_sw tail ({label}) {nm}, whole plane", a, b)
+            # away from the cube corners, whose energy the plain version
+            # divides by 3.0 as a reciprocal multiply: bit-identical
+            far = away_from_cube_corners(sgrid, a.shape, a.device)
+            n_diff = log_identical(f"d_sw tail ({label}) {nm}, away from the cube corners",
+                                   a[far], b[far])
+            if n_diff:
+                raise AssertionError(f"d_sw tail ({label}) {nm}: {n_diff} points away from the "
+                                     f"cube corners differ from the plain version")
         if tcfg is scfg:  # the main path's call
             ms = time_ms(lambda: dtk.d_sw_tail_cuda(*t_args), 20)
             plain_ms = time_ms(lambda: d_sw_ops.d_sw_tail_plain(*t_args), 3)
@@ -1045,8 +1103,10 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             results["d_sw_tail"] = dict(max_abs_err=max(t_err["u_new"], t_err["v_new"]), ms=ms,
                                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                         library_ms=None)
+            t_bytes = nbytes(*t_args[:10], *t_consts, *t_got)
             log(f"[time] d_sw tail {tuple(vort.shape)} f32 nord {tcfg.nord}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the "
+                f"kernel's time, {t_bytes / ms / 1e6:.1f} GB/s of the bound's bytes")
         del t_got, t_ref, t_args
     del vfx, vfy, dvfx, dvfy, vort, vort_x, vort_p, ut, vt, divg, tail_cases
 

@@ -1,14 +1,15 @@
 // Lin & Rood (1996) 2-D PPM flux-form transport, fused in one kernel.
 //
 // Replaces pace_tpu/ops/fvtp2d_pallas.py `_kernel` (pallas_call at :212,
-// entry fvtp2d_pallas :229) and `_kernel_tracer` (pallas_call at :501,
-// entry fvtp2d_tracer_pallas :519): the single-field kernel is this one
-// with NQ = 1 (mass-flux weights on or off), the tracer kernel runs a
-// stacked block of NQ tracers that share the Courant numbers, area fluxes,
-// cell areas and mass fluxes. fvtp2d_multi_kernel, further down, replaces
-// `_kernel_multi` (pallas_call at :390, entry fvtp2d_multi_pallas :578):
-// up to four separate fields, each with its own hord, weighting and y-fold
-// form, in one launch.
+// entry fvtp2d_pallas :229): fvtp2d_kernel with NQ = 1 (mass-flux weights
+// on or off); with NQ > 1 it runs a stacked block of NQ tracers, one block
+// per tracer. fvtp2d_multi_kernel, further down, replaces `_kernel_multi`
+// (pallas_call at :390, entry fvtp2d_multi_pallas :578): up to four
+// separate fields, each with its own hord, weighting and y-fold form, in
+// one launch. fvtp2d_tracer_kernel, last, replaces `_kernel_tracer`
+// (pallas_call at :501, entry fvtp2d_tracer_pallas :519): a stacked block
+// of tracers that share the Courant numbers, area fluxes, cell areas and
+// mass fluxes, walked by each block.
 //
 //     Fx = 1/2 [ X(q) + X(Y(q)) ] * wx        Fy = 1/2 [ Y(q) + Y(X(q)) ] * wy
 //
@@ -26,11 +27,11 @@
 // (hord 8, per-cell PPM terms counted once; four 1-D PPM evaluations, two
 // inner updates), ~0.04 ms at the 67 TFLOP/s f32 rate for a C192 npz=79
 // field against ~0.16 ms for its ~520 MB of operand and result traffic at
-// 3.35 TB/s. This kernel recomputes the per-cell dm/al terms for each
+// 3.35 TB/s. fvtp2d_kernel recomputes the per-cell dm/al terms for each
 // interface it evaluates (about 2.5x the needed flops at hord 8).
-// Design: one thread block per (output tile, level, shard, tracer) stages
-// q, the y-fold corner pack, crx/cry/xfx/yfx/area with a 3-cell stencil
-// halo in shared memory
+// Design of fvtp2d_kernel: one thread block per (output tile, level, shard,
+// tracer) stages q, the y-fold corner pack, crx/cry/xfx/yfx/area with a
+// 3-cell stencil halo in shared memory
 // and keeps every intermediate (the inner fluxes fx1/fy1 and the inner
 // updates, written in place over the staged q) there: device memory sees
 // one read of each operand tile (plus the halo overlap, 1.7x at 16x32) and
@@ -475,17 +476,26 @@ constexpr int kArraysMulti = 11;
 // x sweep) read different shared-memory banks.
 constexpr int LD = 41;
 constexpr int NSM = SY * LD;  // values per staged array
+
+// The geometry of a tile that the routines below stage and sweep: TY x TX
+// outputs, its window of SY x SX cells with the stencil halo, staged rows LD
+// values apart (NSM values an array). Each routine takes it as a template
+// argument and names its members as the file's constants of the same names.
+template <int TY_, int TX_, int LD_>
+struct Tile {
+  static constexpr int TY = TY_, TX = TX_, SY = TY_ + 2 * R, SX = TX_ + 2 * R, LD = LD_,
+                       NSM = SY * LD_;
+  // staging: a thread keeps one column of the window and takes every
+  // kStageRows-th row (6 rows of 38 columns at a time at 16 x 32)
+  static constexpr int kStageRows = kThreads / SX;
+  static_assert(LD_ >= SX, "a staged row holds the window's row");
+};
+// the multi-field kernel's: 16 x 32 outputs, rows 41 apart
+using MultiTile = Tile<TY, TX, LD>;
 constexpr int kSegIn = 3;   // interfaces a thread walks in an inner sweep
 constexpr int kSegOut = 2;  // ... in an outer sweep
-constexpr int kSegsX = (TX + 1 + kSegIn - 1) / kSegIn;  // a row's inner x segments
-constexpr int kSegsY = (TY + 1 + kSegIn - 1) / kSegIn;  // a column's inner y segments
 // The inner sweeps cover the rows (columns) that the updates and the
 // results read: fx1 on rows 0 .. SY-2, fy1 on columns 0 .. SX-2.
-constexpr int kInX = (SY - 1) * kSegsX;
-constexpr int kInY = (SX - 1) * kSegsY;
-constexpr int kOutX = TY * (TX / kSegOut);
-constexpr int kOutY = TX * (TY / kSegOut);
-static_assert(TX % kSegOut == 0 && TY % kSegOut == 0, "outer segments tile the tile");
 
 // Blocks per SM that the multi-field kernel is compiled for (shared memory
 // allows four of float, two of double).
@@ -524,12 +534,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // block: the tile's own rows and columns, and those of its stencil halo,
 // wrapped like a roll only where they fall off the plane; and their places
 // in the y-fold corner pack (-1 outside the pack's rows or columns).
+template <class G>
 struct Window {
-  int gj[SY], gi[SX];
-  int pr[SY], pc[SX];
+  int gj[G::SY], gi[G::SX];
+  int pr[G::SY], pc[G::SX];
 };
 
-__device__ __forceinline__ void form_window(Window& w, int j0, int i0, int h, int Y, int X) {
+template <class G>
+__device__ __forceinline__ void form_window(Window<G>& w, int j0, int i0, int h, int Y, int X) {
+  constexpr int SY = G::SY, SX = G::SX;
   const int t = threadIdx.x;
   if (t < SY) {
     int gj = j0 - R + t;
@@ -544,15 +557,12 @@ __device__ __forceinline__ void form_window(Window& w, int j0, int i0, int h, in
   }
 }
 
-// Staging: a thread keeps one column b of the window and takes every
-// kStageRows-th row (kStageRows = 6 rows of 38 columns at a time).
-constexpr int kStageRows = kThreads / SX;
-
 // One field's qx and y fold into a buffer pair, by cp.async (no commit).
-template <typename T>
+template <typename T, class G>
 __device__ __forceinline__ void stage_field(
     T* s_qx, T* s_qy, const T* __restrict__ qx_p, const T* __restrict__ qy_p,
-    int qy_mode, int h, const Window& win, int X) {
+    int qy_mode, int h, const Window<G>& win, int X) {
+  constexpr int SY = G::SY, SX = G::SX, LD = G::LD, kStageRows = G::kStageRows;
   const int t = threadIdx.x;
   if (t >= kStageRows * SX) return;
   const int b = t % SX;
@@ -575,11 +585,14 @@ __device__ __forceinline__ void stage_field(
 // One field through the staged tile: the inner sweeps, the inner updates in
 // place, the outer sweeps and the weighted results. All threads of the block
 // call it together; it ends on a barrier so the buffer may be refilled.
-template <typename T, int HORD>
+// G: the tile. SI, SO: the interfaces a thread walks in an inner and an
+// outer sweep.
+template <typename T, int HORD, class G = MultiTile, int SI = kSegIn, int SO = kSegOut>
 __device__ void transport_field(
     T* sm, T* s_qx, T* s_qy, const T* __restrict__ wx_p,
     const T* __restrict__ wy_p, T* __restrict__ fx_p, T* __restrict__ fy_p, int j0, int i0,
     int Y, int X) {
+  constexpr int TY = G::TY, TX = G::TX, SY = G::SY, SX = G::SX, LD = G::LD, NSM = G::NSM;
   const T* s_crx = sm;
   const T* s_cry = sm + NSM;
   const T* s_xfx = sm + 2 * NSM;
@@ -589,6 +602,11 @@ __device__ void transport_field(
   T* s_fy1 = sm + 10 * NSM;
   const int X1 = X + 1;
   const int tid = threadIdx.x;
+  static_assert(TX % SO == 0 && TY % SO == 0, "outer segments tile the tile");
+  constexpr int kInX = (SY - 1) * ((TX + 1 + SI - 1) / SI);  // a row's inner x segments
+  constexpr int kInY = (SX - 1) * ((TY + 1 + SI - 1) / SI);  // a column's inner y segments
+  constexpr int kOutX = TY * (TX / SO);
+  constexpr int kOutY = TX * (TY / SO);
 
   // inner sweeps: fx1 of qx along rows (interface cols R..TX+R; a warp's
   // lanes on consecutive rows), fy1 of qy along columns (interface rows
@@ -596,24 +614,24 @@ __device__ void transport_field(
   for (int it = tid; it < kInX + kInY; it += kThreads) {
     if (it < kInX) {
       const int a = it % (SY - 1);
-      const int b = R + (it / (SY - 1)) * kSegIn;
-      const int n = min(kSegIn, TX + R + 1 - b);
+      const int b = R + (it / (SY - 1)) * SI;
+      const int n = min(SI, TX + R + 1 - b);
       const int m = a * LD + b;
-      T f[kSegIn];
+      T f[SI];
       ppm_sweep<T, HORD>(s_qx + m, 1, s_crx + m, 1, n, f);
 #pragma unroll
-      for (int t = 0; t < kSegIn; ++t)
+      for (int t = 0; t < SI; ++t)
         if (t < n) s_fx1[m + t] = f[t];
     } else {
       const int e = it - kInX;
       const int b = e % (SX - 1);
-      const int a = R + (e / (SX - 1)) * kSegIn;
-      const int n = min(kSegIn, TY + R + 1 - a);
+      const int a = R + (e / (SX - 1)) * SI;
+      const int n = min(SI, TY + R + 1 - a);
       const int m = a * LD + b;
-      T f[kSegIn];
+      T f[SI];
       ppm_sweep<T, HORD>(s_qy + m, LD, s_cry + m, LD, n, f);
 #pragma unroll
-      for (int t = 0; t < kSegIn; ++t)
+      for (int t = 0; t < SI; ++t)
         if (t < n) s_fy1[m + t * LD] = f[t];
     }
   }
@@ -647,22 +665,22 @@ __device__ void transport_field(
   // consecutive columns); each averaged with the inner flux in place
   for (int it = tid; it < kOutX + kOutY; it += kThreads) {
     if (it < kOutX) {
-      const int a = it / (TX / kSegOut);
-      const int b = (it - a * (TX / kSegOut)) * kSegOut;
+      const int a = it / (TX / SO);
+      const int b = (it - a * (TX / SO)) * SO;
       const int m = (a + R) * LD + (b + R);
-      T f[kSegOut];
-      ppm_sweep<T, HORD>(s_qy + m, 1, s_crx + m, 1, kSegOut, f);
+      T f[SO];
+      ppm_sweep<T, HORD>(s_qy + m, 1, s_crx + m, 1, SO, f);
 #pragma unroll
-      for (int t = 0; t < kSegOut; ++t) s_fx1[m + t] = T(0.5) * (f[t] + s_fx1[m + t]);
+      for (int t = 0; t < SO; ++t) s_fx1[m + t] = T(0.5) * (f[t] + s_fx1[m + t]);
     } else {
       const int e = it - kOutX;
-      const int a = (e / TX) * kSegOut;
+      const int a = (e / TX) * SO;
       const int b = e - (e / TX) * TX;
       const int m = (a + R) * LD + (b + R);
-      T f[kSegOut];
-      ppm_sweep<T, HORD>(s_qx + m, LD, s_cry + m, LD, kSegOut, f);
+      T f[SO];
+      ppm_sweep<T, HORD>(s_qx + m, LD, s_cry + m, LD, SO, f);
 #pragma unroll
-      for (int t = 0; t < kSegOut; ++t)
+      for (int t = 0; t < SO; ++t)
         s_fy1[m + t * LD] = T(0.5) * (f[t] + s_fy1[m + t * LD]);
     }
   }
@@ -695,6 +713,8 @@ fvtp2d_multi_kernel(
     const T* __restrict__ cry, const T* __restrict__ xfx,
     const T* __restrict__ yfx, const T* __restrict__ area,
     const T* __restrict__ mfx, const T* __restrict__ mfy, int K, int Y, int X) {
+  using G = MultiTile;
+  constexpr int kStageRows = G::kStageRows;
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   T* s_crx = sm;
@@ -715,7 +735,7 @@ fvtp2d_multi_kernel(
   const T* cry_p = cry + lev * Y1 * X;
   const T* yfx_p = yfx + lev * Y1 * X;
   const T* area_p = area + (long long)blockIdx.z * Y * X;
-  __shared__ Window win;
+  __shared__ Window<G> win;
   form_window(win, j0, i0, h, Y, X);
   __syncthreads();
 
@@ -823,6 +843,176 @@ int launch_multi(const void* const* ptrs, const int* modes, int n, int h,
 #undef PACE_MULTI_ARGS
 }
 
+// ---------------------------------------------------------------------------
+// A stacked tracer block (S, NQ, K, Y, X) that shares crx, cry, xfx, yfx,
+// area and the mass fluxes, every tracer with one hord and one y-fold form.
+// Each tracer's fx, fy equal the single-field launch's bit for bit (and
+// fvtp2d_kernel's with NQ tracers, which launches a block per tracer).
+// Bound on an H100: bytes. At C192 npz=79 with nine tracers and the corner
+// pack: 9 qx, 9 fx, 9 fy, the four shared operands, the two mass fluxes and
+// the packs, about 33 fields (~2.5 GB, ~0.74 ms at 3.35 TB/s), against 9 x
+// 156 operations per point at hord 8 (~0.17 ms at 67 TFLOP/s).
+// Design: the multi-field kernel's, with the tracers in place of its fields.
+// One block per (20 x 40 tile, level, shard) walks all NQ tracers:
+// - the window's rows and columns are formed once (form_window), the shared
+//   operands arrive once by cp.async for all tracers;
+// - tracers run in a pipeline: tracer t + 1's qx and corner pack are in
+//   flight by cp.async into the second buffer pair while tracer t is
+//   computed (stage_field);
+// - each tracer goes through transport_field: the 1-D sweeps by ppm_sweep
+//   in segments of kSegInTracer / kSegOutTracer interfaces (the outer
+//   sweeps' 400 segments fill the block's threads in two rounds), results
+//   stored from shared memory with a warp's lanes on consecutive
+//   interfaces;
+// - the tile (TracerTile) is larger than the multi-field kernel's: 20 x 40
+//   cuts the 198 x 198 plane into 10 x 5 tiles with 1% idle (16 x 32: 13 x 7
+//   with 16% idle) and the stencil halo is a smaller share of it. Rows are
+//   LD = 47 values apart (odd, so the lanes of a warp on different rows read
+//   different banks). The multi-field kernel's 11 arrays, of 26 x 47 values:
+//   54 KB of float, four blocks an SM at 64 registers;
+// - the work every tracer repeats on the shared operands alone stays where
+//   each tracer's passes read it: the updated areas ra_y = area + (yfx -
+//   yfx[+1]) and ra_x = area + (xfx - xfx[+1]) formed once a block into two
+//   arrays measured slower on an H100 than the two additions in each update
+//   (PERF.md), and the Courant factors (1 - c), (1 + c) kept in shared
+//   memory would replace one addition by one load each.
+// Tile, segment lengths and blocks an SM were chosen by timing the
+// candidates on an H100 (tools/torch_kernel_variants.py, PERF.md).
+
+constexpr int kSegInTracer = 3;   // interfaces a thread walks in an inner sweep
+constexpr int kSegOutTracer = 4;  // ... in an outer sweep
+// the tracer kernel's tile: 20 x 40 outputs (10 x 5 tiles on the 198 x 198
+// plane, 99% of them used), rows 47 apart (odd: the lanes of a warp on
+// different rows read different banks)
+using TracerTile = Tile<20, 40, 47>;
+
+// Blocks per SM that the tracer kernel is compiled for (shared memory allows
+// four of float, two of double).
+template <typename T>
+constexpr int tracer_blocks() {
+  return sizeof(T) == 8 ? 2 : 4;
+}
+
+// Grid: x = tile, y = level, z = shard. qy_mode as fvtp2d_kernel's.
+template <typename T, int HORD>
+__global__ void __launch_bounds__(kThreads, tracer_blocks<T>())
+fvtp2d_tracer_kernel(
+    const T* __restrict__ qx, const T* __restrict__ qy, int qy_mode, int h,
+    const T* __restrict__ crx, const T* __restrict__ cry,
+    const T* __restrict__ xfx, const T* __restrict__ yfx,
+    const T* __restrict__ area, const T* __restrict__ mfx,
+    const T* __restrict__ mfy, T* __restrict__ fx, T* __restrict__ fy,
+    int NQ, int K, int Y, int X) {
+  using G = TracerTile;
+  constexpr int TY = G::TY, TX = G::TX, SY = G::SY, SX = G::SX, LD = G::LD, NSM = G::NSM;
+  constexpr int kStageRows = G::kStageRows;
+  extern __shared__ unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* s_crx = sm;
+  T* s_cry = sm + NSM;
+  T* s_xfx = sm + 2 * NSM;
+  T* s_yfx = sm + 3 * NSM;
+  T* s_area = sm + 4 * NSM;
+  T* s_buf = sm + 5 * NSM;  // buffer pair p: qx at s_buf + 2p NSM, qy after it
+
+  const int tiles_x = (X + TX - 1) / TX;
+  const int j0 = (blockIdx.x / tiles_x) * TY;
+  const int i0 = (blockIdx.x - (blockIdx.x / tiles_x) * tiles_x) * TX;
+  const int X1 = X + 1;
+  const int Y1 = Y + 1;
+  const long long lev = (long long)blockIdx.z * K + blockIdx.y;
+  const T* crx_p = crx + lev * Y * X1;
+  const T* xfx_p = xfx + lev * Y * X1;
+  const T* cry_p = cry + lev * Y1 * X;
+  const T* yfx_p = yfx + lev * Y1 * X;
+  const T* area_p = area + (long long)blockIdx.z * Y * X;
+  const T* wx_p = mfx ? mfx + lev * Y * X1 : nullptr;
+  const T* wy_p = mfy ? mfy + lev * Y1 * X : nullptr;
+  __shared__ Window<G> win;
+  form_window(win, j0, i0, h, Y, X);
+  __syncthreads();
+
+  // the shared operands, once for all tracers, then the first two tracers
+  if (threadIdx.x < kStageRows * SX) {
+    const int b = threadIdx.x % SX;
+    const int gi = win.gi[b];
+    for (int a = threadIdx.x / SX; a < SY; a += kStageRows) {
+      const int m = a * LD + b;
+      const int gj = win.gj[a];
+      cp_async(s_crx + m, crx_p + gj * X1 + gi);
+      cp_async(s_xfx + m, xfx_p + gj * X1 + gi);
+      cp_async(s_cry + m, cry_p + gj * X + gi);
+      cp_async(s_yfx + m, yfx_p + gj * X + gi);
+      cp_async(s_area + m, area_p + gj * X + gi);
+    }
+  }
+  // tracer t's planes: level (s, t, k) of the block
+  auto plane = [&](int t) { return ((long long)blockIdx.z * NQ + t) * K + blockIdx.y; };
+  auto stage = [&](int t) {
+    T* b = s_buf + 2 * (t & 1) * NSM;
+    const long long q = plane(t);
+    stage_field(b, b + NSM, qx + q * Y * X, qy + (qy_mode ? q * 4 * h * h : q * Y * X),
+                qy_mode, h, win, X);
+    cp_async_commit();
+  };
+  stage(0);
+  if (NQ > 1) stage(1);
+
+  for (int t = 0; t < NQ; ++t) {
+    if (t + 1 < NQ)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    T* b = s_buf + 2 * (t & 1) * NSM;
+    const long long q = plane(t);
+    transport_field<T, HORD, G, kSegInTracer, kSegOutTracer>(
+        sm, b, b + NSM, wx_p, wy_p, fx + q * Y * X1,
+                                           fy + q * Y1 * X, j0, i0, Y, X);
+    if (t + 2 < NQ) stage(t + 2);
+  }
+}
+
+template <typename T, int HORD>
+int launch_tracer_hord(const void* qx, const void* qy, int qy_mode, int h,
+                       const void* crx, const void* cry, const void* xfx,
+                       const void* yfx, const void* area, const void* mfx,
+                       const void* mfy, void* fx, void* fy, int S, int NQ, int K,
+                       int Y, int X, void* stream) {
+  using G = TracerTile;
+  const int tiles = ((Y + G::TY - 1) / G::TY) * ((X + G::TX - 1) / G::TX);
+  const size_t smem = sizeof(T) * kArraysMulti * G::NSM;
+  auto kern = fvtp2d_tracer_kernel<T, HORD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(tiles, K, S);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)qx, (const T*)qy, qy_mode, h, (const T*)crx, (const T*)cry,
+      (const T*)xfx, (const T*)yfx, (const T*)area, (const T*)mfx,
+      (const T*)mfy, (T*)fx, (T*)fy, NQ, K, Y, X);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tracer(const void* qx, const void* qy, int qy_mode, int h, const void* crx,
+                  const void* cry, const void* xfx, const void* yfx, const void* area,
+                  const void* mfx, const void* mfy, void* fx, void* fy, int S, int NQ,
+                  int K, int Y, int X, int hord, void* stream) {
+  if (NQ < 1) return -2;
+#define PACE_TRACER_ARGS \
+  qx, qy, qy_mode, h, crx, cry, xfx, yfx, area, mfx, mfy, fx, fy, S, NQ, K, Y, X, stream
+  switch (hord) {
+    case 1: return launch_tracer_hord<T, 1>(PACE_TRACER_ARGS);
+    case 5:
+    case 6: return launch_tracer_hord<T, 6>(PACE_TRACER_ARGS);
+    case 7: return launch_tracer_hord<T, 7>(PACE_TRACER_ARGS);
+    case 8: return launch_tracer_hord<T, 8>(PACE_TRACER_ARGS);
+    default: return -1;
+  }
+#undef PACE_TRACER_ARGS
+}
+
 }  // namespace
 
 extern "C" int pace_fvtp2d_f32(const void* qx, const void* qy, int qy_mode,
@@ -845,6 +1035,30 @@ extern "C" int pace_fvtp2d_f64(const void* qx, const void* qy, int qy_mode,
                                void* stream) {
   return launch<double>(qx, qy, qy_mode, h, crx, cry, xfx, yfx, area, mfx, mfy,
                         fx, fy, S, NQ, K, Y, X, hord, stream);
+}
+
+// The tracer block: the arguments of pace_fvtp2d_f32 with qx (S, NQ, K, Y,
+// X), qy (S, NQ, K, Y, X) or its corner pack (S, NQ, K, 2h, 2h).
+extern "C" int pace_fvtp2d_tracer_f32(const void* qx, const void* qy, int qy_mode,
+                                      int h, const void* crx, const void* cry,
+                                      const void* xfx, const void* yfx,
+                                      const void* area, const void* mfx,
+                                      const void* mfy, void* fx, void* fy, int S,
+                                      int NQ, int K, int Y, int X, int hord,
+                                      void* stream) {
+  return launch_tracer<float>(qx, qy, qy_mode, h, crx, cry, xfx, yfx, area, mfx, mfy,
+                              fx, fy, S, NQ, K, Y, X, hord, stream);
+}
+
+extern "C" int pace_fvtp2d_tracer_f64(const void* qx, const void* qy, int qy_mode,
+                                      int h, const void* crx, const void* cry,
+                                      const void* xfx, const void* yfx,
+                                      const void* area, const void* mfx,
+                                      const void* mfy, void* fx, void* fy, int S,
+                                      int NQ, int K, int Y, int X, int hord,
+                                      void* stream) {
+  return launch_tracer<double>(qx, qy, qy_mode, h, crx, cry, xfx, yfx, area, mfx, mfy,
+                               fx, fy, S, NQ, K, Y, X, hord, stream);
 }
 
 // ptrs: host array of 4 n device pointers (qx, qy, fx, fy per field); modes:

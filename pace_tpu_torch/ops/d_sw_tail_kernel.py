@@ -49,12 +49,7 @@ _CONST_STAGGER = dict(dx=_YI, rdx=_YI, dy=_XI, rdy=_XI, rsin2=_CELL, cosa_s=_CEL
 
 
 def _fn(dtype):
-    fn = getattr(_build.library("d_sw_tail"), _FN[dtype])
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, P, P, P, I, I, I, I, I, P]
-        fn.restype = I
-    return fn
+    return set_argtypes(getattr(_build.library("d_sw_tail"), _FN[dtype]))
 
 
 def tail_params(config: DSWConfig, dt: float, da_min_c: float):
@@ -85,30 +80,52 @@ def d_sw_tail_cuda(u, v, ut, vt, divg_d, vort, vfx, vfy, dvfx, dvfy,
     if (dvfx is None) != (dvfy is None):
         raise ValueError("d_sw tail kernel: dvfx and dvfy come together")
     S, K, Y, X = vort.shape
-    fields = dict(zip(FIELDS, (u, v, ut, vt, divg_d, vort, vfx, vfy, dvfx, dvfy)))
-    consts = {n: getattr(grid, n) for n in CONSTS if n not in ("wgx", "wgy")}
-    consts["wgx"], consts["wgy"] = lap_corner_weights(grid, config.lap_divg_weights)
-    edges = [getattr(grid, n) for n in EDGES]
+    fields = (u, v, ut, vt, divg_d, vort, vfx, vfy, dvfx, dvfy)
     named = [(n, t, (S, K, Y + _FIELD_STAGGER[n][0], X + _FIELD_STAGGER[n][1]))
-             for n, t in fields.items() if t is not None]
-    named += [(n, consts[n], (S, Y + dy, X + dx)) for n, (dy, dx) in _CONST_STAGGER.items()]
-    named += [(n, t, (S, Y + 1, 1) if i < 2 else (S, 1, X + 1))
-              for i, (n, t) in enumerate(zip(EDGES, edges))]
+             for n, t in zip(FIELDS, fields) if t is not None]
+    named += [(n, t, (S, Y + dy, X + dx))
+              for (n, (dy, dx)), t in zip(_CONST_STAGGER.items(), _constants(grid, config))]
+    named += [(n, getattr(grid, n), (S, Y + 1, 1) if i < 2 else (S, 1, X + 1))
+              for i, n in enumerate(EDGES)]
     check_operands("d_sw tail kernel", named, vort)
+    out = call(_fn(vort.dtype), fields, grid, dt, config, _build.stream_handle(vort.device))
+    LAUNCHES["d_sw_tail"] += 1
+    return out
+
+
+def _constants(grid, config: DSWConfig):
+    """The constant planes in the order of :data:`CONSTS`."""
+    wgx, wgy = lap_corner_weights(grid, config.lap_divg_weights)
+    return [wgx if n == "wgx" else wgy if n == "wgy" else getattr(grid, n) for n in CONSTS]
+
+
+def call(fn, fields, grid, dt: float, config: DSWConfig, stream=None):
+    """Call the C entry ``fn`` (``pace_d_sw_tail_f32`` / ``_f64`` of a
+    library built from ``csrc/d_sw_tail.cu``) on ``fields``, the ten
+    tensors of :data:`FIELDS` (the last two may be ``None``), wherever they
+    lie; checks nothing (:func:`d_sw_tail_cuda` checks first). Returns
+    ``(u_new, v_new, heat)``."""
+    u, v, vort = fields[0], fields[1], fields[5]
+    S, K, Y, X = vort.shape
     d2_col = _device_d2_col(config, K, vort.dtype, str(vort.device))
     u_new, v_new = torch.empty_like(u), torch.empty_like(v)
     heat = torch.empty_like(vort) if tracks_heat(config) else None
     table = tuple(grid.corner_table)
     pos, quad, own = _device_corner_arrays(table, S, str(vort.device))
-    order = ([fields[n] for n in FIELDS] + [consts[n] for n in CONSTS] + edges
+    order = (list(fields) + _constants(grid, config) + [getattr(grid, n) for n in EDGES]
              + [d2_col, u_new, v_new, heat])
     ptrs = (ctypes.c_void_p * len(order))(*(None if t is None else t.data_ptr() for t in order))
     prm = (ctypes.c_double * 5)(*tail_params(config, dt, grid.da_min_c))
-    rc = _fn(vort.dtype)(
-        ptrs, prm, int(config.nord), int(config.dddmp > 0.0),
-        int(config.edge_damp_band), pos.data_ptr(), quad.data_ptr(), own.data_ptr(),
-        len(table), S, K, Y, X, _build.stream_handle(vort.device),
-    )
+    rc = fn(ptrs, prm, int(config.nord), int(config.dddmp > 0.0), int(config.edge_damp_band),
+            pos.data_ptr(), quad.data_ptr(), own.data_ptr(), len(table), S, K, Y, X, stream)
     _build.check(rc, "d_sw tail kernel")
-    LAUNCHES["d_sw_tail"] += 1
     return u_new, v_new, heat
+
+
+def set_argtypes(fn):
+    """Declare the C entry's argument types on ``fn``; returns it."""
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, I, I, I, P, P, P, I, I, I, I, I, P]
+        fn.restype = I
+    return fn

@@ -36,15 +36,16 @@ from .ppm import SUPPORTED_HORDS
 LAUNCHES = {"fvtp2d": 0, "fvtp2d_tracer": 0, "fvtp2d_multi": 0}
 
 _FN = {torch.float32: "pace_fvtp2d_f32", torch.float64: "pace_fvtp2d_f64"}
+_FN_TRACER = {torch.float32: "pace_fvtp2d_tracer_f32", torch.float64: "pace_fvtp2d_tracer_f64"}
 _FN_MULTI = {torch.float32: "pace_fvtp2d_multi_f32", torch.float64: "pace_fvtp2d_multi_f64"}
 
 #: most fields one multi-field launch takes
 MAX_FIELDS = 4
 
 
-def _fn(dtype):
+def _fn(dtype, names=_FN):
     lib = _build.library("fvtp2d")
-    fn = getattr(lib, _FN[dtype])
+    fn = getattr(lib, names[dtype])
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, I, I] + [P] * 9 + [I] * 6 + [P]
@@ -52,8 +53,11 @@ def _fn(dtype):
     return fn
 
 
-def _launch(qx, qy, crx, cry, xfx, yfx, area, mfx, mfy, hord):
-    """qx: (S, NQ, K, Y, X); operands (S, K, ·, ·); returns 5-D fx, fy."""
+def _launch(qx, qy, crx, cry, xfx, yfx, area, mfx, mfy, hord, names=_FN):
+    """qx: (S, NQ, K, Y, X); operands (S, K, ·, ·); returns 5-D fx, fy.
+    ``names``: the C entry by dtype (the single-field kernel's, which also
+    takes a block of NQ tracers with one block per tracer, or the tracer
+    kernel's)."""
     if hord not in SUPPORTED_HORDS:
         raise ValueError(f"unsupported hord {hord}; choose from {SUPPORTED_HORDS}")
     S, NQ, K, Y, X = qx.shape
@@ -86,7 +90,7 @@ def _launch(qx, qy, crx, cry, xfx, yfx, area, mfx, mfy, hord):
     fx = torch.empty((S, NQ, K, Y, X + 1), dtype=qx.dtype, device=qx.device)
     fy = torch.empty((S, NQ, K, Y + 1, X), dtype=qx.dtype, device=qx.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _fn(qx.dtype)(
+    rc = _fn(qx.dtype, names)(
         qx.data_ptr(), qy_t.data_ptr(), int(patch), h,
         crx.data_ptr(), cry.data_ptr(), xfx.data_ptr(), yfx.data_ptr(),
         area.data_ptr(), ptr(mfx), ptr(mfy), fx.data_ptr(), fy.data_ptr(),
@@ -198,8 +202,10 @@ def fvtp2d_multi_plain(fields, crx, cry, xfx, yfx, area, mfx=None, mfy=None):
 
 def fvtp2d_tracer_cuda(qx, qy, crx, cry, xfx, yfx, area, mfx, mfy, hord: int):
     """Mass-flux-weighted fused-kernel fluxes of a tracer block ``(S, nq,
-    K, Y, X)``; ``qy`` a full block or a CornerPatch ``(S, nq, K, 2h, 2h)``."""
-    out = _launch(qx, qy, crx, cry, xfx, yfx, area, mfx, mfy, hord)
+    K, Y, X)``; ``qy`` a full block or a CornerPatch ``(S, nq, K, 2h, 2h)``.
+    One launch of the tracer kernel, whose blocks walk all ``nq`` tracers;
+    each tracer's fluxes equal the single-field launch's bit for bit."""
+    out = _launch(qx, qy, crx, cry, xfx, yfx, area, mfx, mfy, hord, _FN_TRACER)
     LAUNCHES["fvtp2d_tracer"] += 1
     return out
 

@@ -11,6 +11,13 @@ acoustic loop (``one_grad_p``), d_sw's two-field transport (pt and
 vorticity), the remap's hydrostatic ``pkz`` branch and ``nord = 1``. Held on
 the compute domain (fluxes on the interfaces that bound it) within rtol
 1e-12 and 1e-12 of each field's largest reference value.
+
+A second step from the same state adds the two paths that file does not
+set: slow Rayleigh damping (``tau > 0`` with ``rf_fast`` off: ``ray_fast``
+once per outer step after the remap, with the file family's ``tau = 10``
+and ``rf_cutoff = 3000`` Pa, which reach the top three levels at npz=8) and
+``tracer_dynamic_subcycle = False`` (``n_split_tracer`` sub-cycles), held
+the same way.
 """
 
 import dataclasses
@@ -50,8 +57,13 @@ def _kw():
     return dict(_yaml()["dycore_config"], npz=NPZ)
 
 
-@pytest.fixture(scope="module")
-def steps():
+#: the two flags of the second step
+RAYLEIGH = dict(tau=10.0, rf_cutoff=3000.0, rf_fast=False, tracer_dynamic_subcycle=False)
+
+
+def _step(**extra):
+    """One step of each implementation from the same state, with the
+    file's flag set and ``extra``."""
     timestep = float(_yaml()["dt_atmos"])
     mt = JMetricTerms.generate(JGridSpec(n_tile=N, npz=NPZ, layout=(1, 1)))
     jgrid = JGridData.from_metric_terms(mt, dtype=jnp.float64)
@@ -68,9 +80,10 @@ def steps():
     tgrid = GridData.from_numpy(garrays, device="cpu", dtype=torch.float64)
     tstate = DycoreState.from_numpy(sarrays, device="cpu", dtype=torch.float64)
     thalo = MetricTerms.generate(GridSpec(n_tile=N, npz=NPZ, layout=(1, 1))).halo
-    jcore = jdycore.DynamicalCore(jgrid, mt.halo, jdycore.DynamicalCoreConfig(**_kw()),
+    jcore = jdycore.DynamicalCore(jgrid, mt.halo,
+                                  jdycore.DynamicalCoreConfig(**_kw(), **extra),
                                   timestep=timestep)
-    tcore = dycore.DynamicalCore(tgrid, thalo, dycore.DynamicalCoreConfig(**_kw()),
+    tcore = dycore.DynamicalCore(tgrid, thalo, dycore.DynamicalCoreConfig(**_kw(), **extra),
                                  timestep=timestep)
     multi_calls = []
     orig = d_sw.fvtp2d_multi_best
@@ -86,6 +99,16 @@ def steps():
         d_sw.fvtp2d_multi_best = orig
     return dict(want=jcore.step_dynamics(jstate), got=got, tcore=tcore, tstate=tstate,
                 tgrid=tgrid, multi_calls=multi_calls)
+
+
+@pytest.fixture(scope="module")
+def steps():
+    return _step()
+
+
+@pytest.fixture(scope="module")
+def steps_rayleigh():
+    return _step(**RAYLEIGH)
 
 
 def _region(shape):
@@ -108,8 +131,7 @@ def test_chip_smoke_runs_the_example_file_s_flag_set():
     assert chip_smoke.HYDROSTATIC_STEP_DT == float(_yaml()["dt_atmos"])
 
 
-@pytest.mark.parametrize("name", FIELDS)
-def test_hydrostatic_step_matches(steps, name):
+def _matches(steps, name):
     want_v, got_v = getattr(steps["want"], name), getattr(steps["got"], name)
     assert (want_v is None) == (got_v is None), name
     if want_v is None:
@@ -122,6 +144,27 @@ def test_hydrostatic_step_matches(steps, name):
     assert np.isfinite(got).all()
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_hydrostatic_step_matches(steps, name):
+    _matches(steps, name)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_hydrostatic_step_with_slow_rayleigh_damping_and_fixed_subcycles_matches(
+        steps_rayleigh, name):
+    _matches(steps_rayleigh, name)
+
+
+def test_slow_rayleigh_damping_acts(steps, steps_rayleigh):
+    """The second step takes the two paths: its configuration says so, and
+    the damping changes the winds of the top levels and no others."""
+    cfg = steps_rayleigh["tcore"].config
+    assert cfg.tau > 0.0 and not cfg.rf_fast and not cfg.tracer_dynamic_subcycle
+    u0, u1 = steps["got"].u, steps_rayleigh["got"].u
+    changed = (u0 != u1).flatten(2).any(dim=2).any(dim=0)  # by level
+    assert changed[:3].all() and not changed[3:].any()
 
 
 def test_hydrostatic_step_transports_two_fields_in_one_multi_call(steps):

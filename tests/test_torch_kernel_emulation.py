@@ -1,6 +1,7 @@
-"""The sim1 and multi-field transport kernels' CUDA sources, built for the CPU
-by ``tools/cuda_cpu_emulation.py`` and held against the plain versions and
-the single-field kernel.
+"""The sim1, multi-field transport, tracer-block transport and D-grid tail
+kernels' CUDA sources, built for the CPU by ``tools/cuda_cpu_emulation.py``
+and held against the plain versions, the single-field kernel and earlier
+designs.
 
 The card is not here; the emulation runs the kernels' own index arithmetic,
 tiling, shared-memory passes and barriers on CPU tensors (see the tool's
@@ -14,11 +15,21 @@ pressure difference amplifies that in float32: deep float32 columns are
 held on the card (``chip_smoke.py``), not here. Multi-field transport:
 equal to the single-field kernel built from the same source for every hord,
 both y-fold forms and 1 to 4 fields, on a plane with interior and edge
-tiles, and to the plain version on the consumed region.
+tiles, and to the plain version on the consumed region. Tracer block: equal
+to the single-field kernel tracer by tracer and to the same source's
+one-block-per-tracer launch (``pace_fvtp2d_*`` with NQ tracers, the design
+the tracer kernel replaced), and to the plain version on the consumed
+region, for every hord, both y-fold forms and 1, 4 and 9 tracers on a plane
+that is no multiple of the tile. D-grid tail: at C12, whose plane holds the
+four cube corners of every tile, for nord 0 to 3 with every switch on and
+with every switch off, equal to the plain version on the whole plane (on
+the CPU both divide by three at the cube corners), and equal to the
+design it replaced where the checkout's history holds it.
 """
 
 import ctypes
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -27,6 +38,10 @@ import pytest
 import torch
 
 from pace_tpu_torch import constants
+from pace_tpu_torch.grid.generation import GridSpec, MetricTerms
+from pace_tpu_torch.grid.grid_data import GridData
+from pace_tpu_torch.ops import d_sw
+from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
 from pace_tpu_torch.ops import fvtp2d_kernel as fk
 from pace_tpu_torch.ops import nonhydro
 from pace_tpu_torch.ops.folds import CornerPatch
@@ -44,7 +59,7 @@ def libs(tmp_path_factory):
         pytest.skip("g++ is needed to build the CPU emulation")
     out = tmp_path_factory.mktemp("emu")
     libs = {}
-    for name in ("sim1", "fvtp2d"):
+    for name in ("sim1", "fvtp2d", "d_sw_tail"):
         path = cuda_cpu_emulation.build(ROOT / "pace_tpu_torch" / "csrc" / f"{name}.cu",
                                         out / f"lib{name}.so")
         libs[name] = ctypes.CDLL(str(path))
@@ -54,7 +69,8 @@ def libs(tmp_path_factory):
     for f in ("pace_fvtp2d_multi_f32", "pace_fvtp2d_multi_f64"):
         fn = getattr(libs["fvtp2d"], f)
         fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 7 + [I] * 4 + [P_], I
-    for f in ("pace_fvtp2d_f32", "pace_fvtp2d_f64"):
+    for f in ("pace_fvtp2d_f32", "pace_fvtp2d_f64", "pace_fvtp2d_tracer_f32",
+              "pace_fvtp2d_tracer_f64"):
         fn = getattr(libs["fvtp2d"], f)
         fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 9 + [I] * 6 + [P_], I
     return libs
@@ -206,3 +222,157 @@ def test_multi_kernel_source_equals_single_field_kernel_and_plain(libs, case, dt
         assert torch.equal(fx, sx) and torch.equal(fy, sy), field[2]
         for a, b in ((fx, px), (fy, py)):
             assert torch.equal(a[..., 3:-3, 3:-3], b[..., 3:-3, 3:-3]), field[2]
+
+
+# ------------------------------------------------------ tracer-block transport
+
+
+def _block(lib, entry, qx, qy, ops, mfx, mfy, hord):
+    """``entry`` (``pace_fvtp2d`` or ``pace_fvtp2d_tracer``) on a tracer
+    block ``(S, NQ, K, Y, X)``."""
+    S, NQ, K, Y, X = qx.shape
+    patch = isinstance(qy, CornerPatch)
+    qy_t = qy.data if patch else qy
+    fx = torch.full((S, NQ, K, Y, X + 1), 7.0, dtype=qx.dtype)
+    fy = torch.full((S, NQ, K, Y + 1, X), 7.0, dtype=qx.dtype)
+    rc = getattr(lib, f"{entry}_{_suffix(qx.dtype)}")(
+        qx.data_ptr(), qy_t.data_ptr(), int(patch), qy_t.shape[-1] // 2 if patch else 0,
+        *[t.data_ptr() for t in ops], mfx.data_ptr(), mfy.data_ptr(), fx.data_ptr(),
+        fy.data_ptr(), S, NQ, K, Y, X, hord, None)
+    assert rc == 0
+    return fx, fy
+
+
+TRACER_CASES = ([(hord, 4, patch) for hord in (1, 5, 6, 7, 8) for patch in (True, False)]
+                + [(8, 1, True), (8, 9, True)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("hord,nq,patch", TRACER_CASES,
+                         ids=[f"hord{h}-nq{n}-{'pack' if p else 'full'}"
+                              for h, n, p in TRACER_CASES])
+def test_tracer_kernel_source_equals_per_tracer_launches_and_plain(libs, hord, nq, patch,
+                                                                   dtype):
+    S, K, Y, X = 1, 1, 21, 45  # 2 x 2 tiles, both ragged
+    ops, mfx, mfy = _operands(S, K, Y, X, dtype, seed=hord)
+    qs = [_field(S, K, Y, X, dtype, 10 * t + hord, patch) for t in range(nq)]
+    qx = torch.stack([q[0] for q in qs], dim=1).contiguous()
+    qy_t = torch.stack([q[1].data if patch else q[1] for q in qs], dim=1).contiguous()
+    qy = CornerPatch(qy_t) if patch else qy_t
+    fx, fy = _block(libs["fvtp2d"], "pace_fvtp2d_tracer", qx, qy, ops, mfx, mfy, hord)
+    # the one-block-per-tracer design, from the same source
+    bx, by = _block(libs["fvtp2d"], "pace_fvtp2d", qx, qy, ops, mfx, mfy, hord)
+    assert torch.equal(fx, bx) and torch.equal(fy, by)
+    for t, (qx_t, qy_1) in enumerate(qs):
+        sx, sy = _single(libs["fvtp2d"], (qx_t, qy_1, hord, True), ops, mfx, mfy)
+        assert torch.equal(fx[:, t], sx) and torch.equal(fy[:, t], sy), t
+    px, py = fk.fvtp2d_tracer_plain(qx, qy, *ops, mfx, mfy, hord)
+    for a, b in ((fx, px), (fy, py)):
+        assert torch.equal(a[..., 3:-3, 3:-3], b[..., 3:-3, 3:-3])
+
+
+# ------------------------------------------------------------- D-grid tail
+
+BENCH_TAIL = dict(nord=3, d4_bg=0.15, d2_bg=0.0, d2_bg_k1=0.2, d2_bg_k2=0.1, dddmp=0.5,
+                  do_vort_damp=True, vtdm4=0.06, d_con=1.0, edge_damp_band=True)
+#: every switch on (the benchmark's set at each nord), every switch off
+#: (no Smagorinsky part, band, vorticity damping or heat) and the
+#: Laplacian's other weighting
+TAIL_CASES = {f"nord{n}-{k}": cfg for n in range(4) for k, cfg in (
+    ("all-on", dict(BENCH_TAIL, nord=n)),
+    ("all-off", dict(BENCH_TAIL, nord=n, dddmp=0.0, edge_damp_band=False, vtdm4=0.0,
+                     d_con=0.0)))}
+TAIL_CASES["nord2-divg-weights"] = dict(BENCH_TAIL, nord=2, lap_divg_weights=True)
+
+
+@pytest.fixture(scope="module")
+def tail_setup():
+    mt = MetricTerms.generate(GridSpec(n_tile=12, npz=3, layout=(1, 1)))
+    grids = {dt: GridData.from_metric_terms(mt, device="cpu", dtype=dt)
+             for dt in (torch.float32, torch.float64)}
+    S, Y, X = grids[torch.float64].area.shape
+    rng = np.random.default_rng(13)
+    K = 3  # the top two levels take the sponge's d2_col, the third d2_bg
+
+    def r(dy, dx, scale=1.0):
+        return scale * rng.standard_normal((S, K, Y + dy, X + dx))
+
+    fields = dict(u=r(1, 0), v=r(0, 1), ut=r(0, 1), vt=r(1, 0), divg_d=r(1, 1, 1e-5),
+                  vort=r(0, 0, 1e-5), vfx=r(0, 1), vfy=r(1, 0), dvfx=r(0, 1), dvfy=r(1, 0))
+    return grids, fields
+
+
+def _tail(fn, grid, fields, cfg, dtype):
+    config = d_sw.DSWConfig(**cfg)
+    with_vd = config.do_vort_damp and config.vtdm4 > 0.0
+    args = [torch.from_numpy(fields[n]).to(dtype) if with_vd or not n.startswith("dv")
+            else None for n in dtk.FIELDS]
+    return args, config, dtk.call(dtk.set_argtypes(fn), args, grid, 200.0 / 56, config)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_tail_kernel_source_equals_the_plain_version(libs, tail_setup, case, dtype):
+    grids, fields = tail_setup
+    cfg = TAIL_CASES[case]
+    fn = getattr(libs["d_sw_tail"], f"pace_d_sw_tail_{_suffix(dtype)}")
+    args, config, got = _tail(fn, grids[dtype], fields, cfg, dtype)
+    ref = d_sw.d_sw_tail_plain(*args, grids[dtype], 200.0 / 56, config)
+    assert grids[dtype].corner_table  # the plane holds cube corners
+    for name, a, b in zip(("u_new", "v_new", "heat"), got, ref):
+        assert (a is None) == (b is None), name
+        if b is None:
+            continue
+        if config.nord == 0 and config.dddmp > 0.0:
+            # the potential is the Smagorinsky part alone there, and the CPU's
+            # plain version rounds it differently at a few points (the
+            # design this kernel replaced did the same): 4 ulp of the maximum
+            tol = 4 * torch.finfo(dtype).eps * float(b.abs().max())
+            assert float((a - b).abs().max()) <= tol, name
+        else:
+            assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.fixture(scope="module")
+def earlier_tail(libs, tmp_path_factory):
+    """The D-grid tail source before its redesign, built for the CPU, where
+    the checkout's history holds it."""
+    git = shutil.which("git")
+    res = (subprocess.run([git, "-C", str(ROOT), "show",
+                           "3c5accc:pace_tpu_torch/csrc/d_sw_tail.cu"],
+                          capture_output=True, text=True) if git else None)
+    if res is None or res.returncode != 0:
+        pytest.skip("the checkout's history does not hold the earlier D-grid tail")
+    out = tmp_path_factory.mktemp("emu_earlier")
+    src = out / "d_sw_tail.cu"
+    src.write_text(res.stdout)
+    return ctypes.CDLL(str(cuda_cpu_emulation.build(src, out / "libd_sw_tail.so")))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["nord0-all-on", "nord1-all-off", "nord3-all-on"])
+def test_tail_kernel_source_equals_the_earlier_design(libs, earlier_tail, tail_setup, case,
+                                                      dtype):
+    grids, fields = tail_setup
+    name = f"pace_d_sw_tail_{_suffix(dtype)}"
+    _a, _c, got = _tail(getattr(libs["d_sw_tail"], name), grids[dtype], fields,
+                        TAIL_CASES[case], dtype)
+    _a, _c, ref = _tail(getattr(earlier_tail, name), grids[dtype], fields, TAIL_CASES[case],
+                        dtype)
+    for a, b in zip(got, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+# ------------------------------------------ the tuning candidates' tables
+
+@pytest.mark.parametrize("name", ["sim1", "fvtp2d", "tracer", "d_sw_tail"])
+def test_variant_candidates_apply_to_the_current_sources(name):
+    """Every candidate and diagnostic of tools/torch_kernel_variants.py
+    finds its text in the current source and changes it (the tool raises
+    on the card otherwise, after the first builds have started)."""
+    import torch_kernel_variants
+
+    src = (ROOT / "pace_tpu_torch" / "csrc" / f"{torch_kernel_variants.LIBRARY.get(name, name)}.cu"
+           ).read_text()
+    texts = torch_kernel_variants.candidate_sources(name)
+    assert texts and all(text != src for text in texts.values())

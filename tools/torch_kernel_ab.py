@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time an earlier revision's remap, nh_p_grad, sim1 and multi-field
-transport kernels against the current ones on one NVIDIA card, in turns, at
-the dycore step's shapes.
+"""Time an earlier revision's remap, nh_p_grad, sim1, multi-field transport,
+tracer-block transport and D-grid tail kernels against the current ones on
+one NVIDIA card, in turns, at the dycore step's shapes.
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
     mkdir -p build/prev
-    for f in remap pgrad sim1 fvtp2d; do
+    for f in remap pgrad sim1 fvtp2d d_sw_tail; do
         git show <rev>:pace_tpu_torch/csrc/$f.cu > build/prev/$f.cu
     done
-    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels sim1,fvtp2d]
+    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels tracer,d_sw_tail]
 
-``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, halo`` (default all);
-the earlier directory needs the sources of the kernels picked. The earlier
-sources must export the C functions the current wrappers call
-(``pace_remap_f32`` ..., ``pace_pgrad_f32`` ..., ``pace_sim1_f32`` ...,
-``pace_fvtp2d_multi_f32`` ...) with the current arguments. Both revisions
+``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, tracer, d_sw_tail,
+halo`` (default all); the earlier directory needs the sources of the kernels
+picked (``fvtp2d.cu`` for ``fvtp2d`` and ``tracer``). The earlier sources
+must export the C functions the current wrappers call (``pace_remap_f32``
+..., ``pace_pgrad_f32`` ..., ``pace_sim1_f32`` ..., ``pace_fvtp2d_multi_f32``
+..., ``pace_d_sw_tail_f32`` ...) with the current arguments; the earlier
+tracer block is the earlier ``pace_fvtp2d_f32`` / ``_f64`` with NQ tracers
+(one block per tracer), the current one ``pace_fvtp2d_tracer_f32`` /
+``_f64``. Both revisions
 are built with ``_build.NVCC_FLAGS`` and their ``-Xptxas -v`` lines printed
 (the earlier ones into ``build/kernels/prev``, which ``.gitignore`` lists).
 Each kernel then runs through its own wrapper on the same inputs, C192
@@ -28,7 +32,14 @@ acoustic loop of the dycore step, as in ``chip_smoke.py``. sim1 takes
 ``chip_smoke.py``'s C-grid operands (one nonhydrostatic C-grid half step,
 as ``riem_solver_c`` calls it; ``riem_solver3`` calls it at the same
 shapes), the multi-field transport d_sw's pt / vorticity / w of one acoustic
-substep; both also in float64 on the same inputs (means of 5 launches).
+substep; both also in float64 on the same inputs (means of 5 launches). The
+tracer block takes ``chip_smoke.py``'s nine tracers (hord 8, the corner
+pack, mass-flux weights; means of 5 launches in float32, 2 in float64),
+beside the single-field launch (hord 6, ``delp``) whose kernel both
+revisions share. The D-grid tail takes ``chip_smoke.py``'s two tail cases
+on one acoustic substep's fields (the benchmark's nord 3 with every switch
+on; nord 1 without band, heat or vorticity damping), in float32 and on the
+same inputs in float64 (with a float64 copy of the grid).
 
 With ``halo`` picked, the halo exchange plan that launches most often in one
 dycore step (``demos/dycore_step``, with a seeded tracer block): launches
@@ -62,7 +73,9 @@ log = chip_smoke.log
 time_ms = chip_smoke.time_ms
 nbytes = chip_smoke.nbytes
 
-KERNELS = ("remap", "pgrad", "sim1", "fvtp2d")
+KERNELS = ("remap", "pgrad", "sim1", "fvtp2d", "tracer", "d_sw_tail")
+#: the kernel library each pick builds (the tracer kernel lives in fvtp2d.cu)
+LIBRARY = {"tracer": "fvtp2d"}
 
 
 def build_prev(prev_dir: str, names):
@@ -91,13 +104,16 @@ def build_prev(prev_dir: str, names):
 def in_turns(label, libs, name, call, reps, moved):
     """``call`` with the earlier and the current library of ``name`` in
     turns; logs the times and whether the outputs agree bit for bit.
-    ``call`` may return a tensor or a (nested) sequence of tensors."""
+    ``call`` may return a tensor or a (nested) sequence of tensors; it may
+    also be ``{"earlier": fn, "current": fn}`` where the two revisions are
+    reached through different entries."""
     order = ("earlier", "current", "current", "earlier")
     outs, times = {}, []
     for which in order:
         _build._LIBS[name] = libs[which]
-        outs.setdefault(which, call())
-        times.append(time_ms(call, reps))
+        fn = call[which] if isinstance(call, dict) else call
+        outs.setdefault(which, fn())
+        times.append(time_ms(fn, reps))
     _build._LIBS[name] = libs["current"]
     a, b = flat(outs["earlier"]), flat(outs["current"])
     same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
@@ -114,7 +130,7 @@ def flat(out):
     """The tensors of a (nested) sequence, in order."""
     if torch.is_tensor(out):
         return [out]
-    return [t for o in out for t in flat(o)]
+    return [t for o in out if o is not None for t in flat(o)]
 
 
 def build_both(prev_dir, names):
@@ -208,6 +224,122 @@ def sim1_and_multi(libs, n, npz, dev):
             del o, fields
         del trio, ops
         torch.cuda.empty_cache()
+    return ok
+
+
+def tracer_operands(n, npz, dev):
+    """chip_smoke.py's tracer block and the single-field ``delp`` call, in
+    float32: ``(tracer_args, single_args)``, the arguments of
+    ``fvtp2d_tracer_cuda`` (nine tracers, the corner pack, hord 8) and of
+    ``fvtp2d_cuda`` (hord 6)."""
+    from pace_tpu_torch.demos import tracer_advection as demo
+    from pace_tpu_torch.ops.folds import CornerPatch
+    from pace_tpu_torch.ops.fvtp2d import fvtp2d_best
+    from pace_tpu_torch.ops.tracer_advection import subcycle_count
+
+    case = demo.build_case(n, npz, chip_smoke.NQ, chip_smoke.DT, device=dev,
+                           dtype=torch.float32)
+    grid = case.grid
+    frac = 1.0 / subcycle_count(case.crx, case.cry, grid.n_halo)
+    dpx, dpp = case.halo.update_scalar_fold_patch(case.delp)
+    fl = fvtp2d_best(dpx, CornerPatch(dpp), case.crx, case.cry, case.xfx, case.yfx,
+                     grid.area, 6)
+    mfx, mfy = case.halo.sync_vector_interfaces(fl.fx, fl.fy, kind="cgrid")
+    ops = [t * frac for t in (case.crx, case.cry, case.xfx, case.yfx)] + [grid.area]
+    qx, qp = case.halo.update_scalar_fold_patch(case.q)
+    return ((qx, CornerPatch(qp), *ops, mfx * frac, mfy * frac, 8),
+            (dpx, CornerPatch(dpp), *ops, 6))
+
+
+def tracer_block(libs, n, npz, dev):
+    """The tracer block of chip_smoke.py: the earlier one-block-per-tracer
+    launch against the tracer kernel, in float32 (timed) and float64 (the
+    bits); and the single-field launch both revisions share."""
+    from pace_tpu_torch.ops import fvtp2d_kernel as fk
+    from pace_tpu_torch.ops.folds import CornerPatch
+
+    targs, single = tracer_operands(n, npz, dev)
+    ok = in_turns(f"fvtp2d single field {tuple(single[0].shape)} f32 hord 6 (the kernel both "
+                  f"revisions share)", libs["fvtp2d"], "fvtp2d",
+                  lambda: fk.fvtp2d_cuda(*single), 20,
+                  nbytes(single[0], single[1].data, *single[2:7]) + nbytes(*single[2:4]))
+    for dtype, reps in ((torch.float32, 5), (torch.float64, 2)):
+        qx, qp = targs[0].to(dtype), targs[1].data.to(dtype)
+        o = [t.to(dtype) for t in targs[2:9]]
+        args = (qx, CornerPatch(qp), *o, 8)
+        calls = {"earlier": lambda: fk._launch(*args),
+                 "current": lambda: fk.fvtp2d_tracer_cuda(*args)}
+        moved = nbytes(qx, qp, *o) + qx.shape[1] * nbytes(o[0], o[1])  # + fx, fy
+        ok &= in_turns(f"fvtp2d tracer block {tuple(qx.shape)} {str(dtype)[6:]} hord 8",
+                       libs["fvtp2d"], "fvtp2d", calls, reps, moved)
+        del qx, qp, o, args, calls
+        torch.cuda.empty_cache()
+    return ok
+
+
+def tail_operands(n, npz, dev):
+    """chip_smoke.py's two D-grid tail cases on one acoustic substep's
+    fields: ``[(label, args)]``, ``args`` those of ``d_sw_tail_cuda``."""
+    from pace_tpu_torch.demos import acoustic_substep as sdemo
+    from pace_tpu_torch.ops import d_sw as d_sw_ops
+    from pace_tpu_torch.ops.delnflux import delnflux
+    from pace_tpu_torch.ops.folds import CornerPatch
+    from pace_tpu_torch.ops.fvtp2d import fvtp2d_best
+    from pace_tpu_torch.ops.fxadv import flux_prep_x, flux_prep_y
+
+    scase = sdemo.build_case(n, npz, device=dev, dtype=torch.float32)
+    sgrid, shalo, scfg = scase.grid, scase.halo, scase.config.d_sw
+    dt = 2.0 * scase.dt2
+    chalf, _dhalf = sdemo.step(scase)
+    crx, xfx, ut = flux_prep_x(chalf.uc_x, chalf.vc_x, sgrid, dt)
+    cry, yfx, vt = flux_prep_y(chalf.uc_y, chalf.vc_y, sgrid, dt)
+    vort = d_sw_ops.absolute_vorticity_centers(chalf.u_y, chalf.v_x, sgrid)
+    vort_x, vort_p = shalo.update_scalar_fold_patch(vort)
+    # the vorticity's fluxes as d_sw forms them (area-flux weights), synced
+    vfl = fvtp2d_best(vort_x, CornerPatch(vort_p), crx, cry, xfx, yfx, sgrid.area,
+                      scfg.hord_vt)
+    vfx, vfy = shalo.sync_vector_interfaces(vfl.fx, vfl.fy, kind="cgrid")
+    dvfx, dvfy = delnflux(vort_x, sgrid, min(2, scfg.nord), scfg.vtdm4, sgrid.da_min)
+    dvfx, dvfy = shalo.sync_vector_interfaces(dvfx, dvfy, kind="cgrid")
+    del vfl, crx, cry, xfx, yfx, scase
+    fields = (chalf.u_y, chalf.v_x, ut, vt, chalf.cg.divg_d, vort, vfx, vfy)
+    cases = [("nord 3, every switch on", (*fields, dvfx, dvfy, sgrid, dt, scfg)),
+             ("nord 1, no band, heat or vorticity damping",
+              (*fields, None, None, sgrid, dt,
+               d_sw_ops.DSWConfig(nord=1, d4_bg=0.16, dddmp=0.0, d_con=0.0, vtdm4=0.0,
+                                  edge_damp_band=False)))]
+    return cases
+
+
+def grid_as(grid, dtype):
+    """A copy of ``grid`` with its tensor fields in ``dtype``."""
+    import dataclasses
+
+    return dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).to(dtype) for f in dataclasses.fields(grid)
+        if torch.is_tensor(getattr(grid, f.name)) and getattr(grid, f.name).is_floating_point()})
+
+
+def d_sw_tail(libs, n, npz, dev):
+    """Both tail cases, earlier against current, in float32 (timed, 20
+    launches) and float64 (the bits, 5)."""
+    from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
+    from pace_tpu_torch.ops.delnflux import lap_corner_weights
+
+    ok = True
+    for label, args in tail_operands(n, npz, dev):
+        grid = args[10]
+        for dtype, reps in ((torch.float32, 20), (torch.float64, 5)):
+            g = grid if dtype == torch.float32 else grid_as(grid, dtype)
+            a = tuple(None if t is None else t.to(dtype) for t in args[:10]) + (g,) + args[11:]
+            outs = [t for t in dtk.d_sw_tail_cuda(*a) if t is not None]
+            consts = [getattr(g, c) for c in dtk.CONSTS if not c.startswith("wg")]
+            consts += list(lap_corner_weights(g)) + [getattr(g, c) for c in dtk.EDGES]
+            ok &= in_turns(f"d_sw tail ({label}) {tuple(a[5].shape)} {str(dtype)[6:]}",
+                           libs["d_sw_tail"], "d_sw_tail", lambda: dtk.d_sw_tail_cuda(*a),
+                           reps, nbytes(*a[:10], *consts, *outs))
+            del a, outs, consts
+            torch.cuda.empty_cache()
     return ok
 
 
@@ -324,9 +456,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--prev", required=True,
                     help="directory of the earlier sources (remap.cu, pgrad.cu, sim1.cu, "
-                         "fvtp2d.cu)")
+                         "fvtp2d.cu, d_sw_tail.cu)")
     ap.add_argument("--kernels", default=",".join(KERNELS + ("halo",)),
-                    help="comma-separated: remap, pgrad, sim1, fvtp2d, halo (default all)")
+                    help="comma-separated: remap, pgrad, sim1, fvtp2d, tracer, d_sw_tail, "
+                         "halo (default all)")
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--npz", type=int, default=79)
     args = ap.parse_args()
@@ -342,8 +475,16 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(f"card: {smi}")
-    libs = build_both(args.prev, [k for k in KERNELS if k in picked])
-    ok = sim1_and_multi(libs, args.n, args.npz, dev)
+    libs = build_both(args.prev, sorted({LIBRARY.get(k, k) for k in KERNELS if k in picked}))
+    ok = True
+    if "tracer" in picked:
+        ok &= tracer_block(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
+    if "d_sw_tail" in picked:
+        ok &= d_sw_tail(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
+    libs = {k: v for k, v in libs.items() if k in picked}
+    ok &= sim1_and_multi(libs, args.n, args.npz, dev)
     torch.cuda.empty_cache()
     ok &= remap_and_pgrad(libs, args.n, args.npz, dev)
     torch.cuda.empty_cache()

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Time the tuning candidates of the sim1 and multi-field transport kernels
-on one NVIDIA card, at the dycore step's shapes.
+"""Time the tuning candidates of the sim1, multi-field transport,
+tracer-block transport and D-grid tail kernels on one NVIDIA card, at the
+dycore step's shapes.
 
-Each candidate is the current source (``pace_tpu_torch/csrc/sim1.cu`` or
-``fvtp2d.cu``) with one or two of its tuning constants changed (``CANDIDATES``
-below: tile width and blocks an SM for sim1, segment lengths and blocks an
-SM for the transport), built with ``_build.NVCC_FLAGS`` into
-``build/kernels/variants`` (gitignored), and run through the current
-wrapper on the inputs of ``tools/torch_kernel_ab.py`` (C192 npz=79 f32:
-sim1 on one nonhydrostatic C-grid half step's operands, the transport on
-d_sw's pt / vorticity / w). Two rounds of CUDA-event means of 20 launches,
-the current build first in each, and whether each candidate gives the
-current build's bits. Run from the repository root on a machine with a
-card and ``nvcc``::
+Each candidate is the current source (``pace_tpu_torch/csrc/sim1.cu``,
+``fvtp2d.cu`` or ``d_sw_tail.cu``) with one or more of its tuning constants
+changed (``CANDIDATES`` below: tile width and blocks an SM for sim1, segment
+lengths, blocks an SM and the tracer kernel's tile for the transports, and
+tile shape, levels a block and blocks an SM for the tail), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
+(gitignored), and run through the current wrapper on the inputs of
+``tools/torch_kernel_ab.py`` (C192 npz=79 f32: sim1 on one nonhydrostatic
+C-grid half step's operands, the multi-field transport on d_sw's pt /
+vorticity / w, the tracer block on chip_smoke.py's nine tracers, the tail on
+the benchmark's nord 3 case). Two rounds of CUDA-event means of 20 launches
+(the tracer block 5), the current build first in each, and whether each
+candidate gives the current build's bits. Run from the repository root on a
+machine with a card and ``nvcc``::
 
-    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d]
+    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,d_sw_tail]
 
 Prints ``[build]`` lines (registers and spills), ``[variant]`` lines and the
 card's name and power limit. ``DIAGNOSTICS`` adds builds that leave a part of
@@ -48,6 +51,15 @@ _SIM1_SMEM = "constexpr long long kSmemPerBlock = 57344;"
 _SEG_IN = "constexpr int kSegIn = 3;"
 _SEG_OUT = "constexpr int kSegOut = 2;"
 _MULTI_BLOCKS = "return sizeof(T) == 8 ? 2 : 4;"
+_TRACER_SEG_IN = "constexpr int kSegInTracer = 3;"
+_TRACER_TILE = "using TracerTile = Tile<20, 40, 47>;"
+_TRACER_BLOCKS = "constexpr int tracer_blocks() {\n  return sizeof(T) == 8 ? 2 : 4;"
+_TRACER_SEG_OUT = "constexpr int kSegOutTracer = 4;"
+_TAIL_TY = "constexpr int TY = 8;       // slot rows of a tile"
+_TAIL_TX = "constexpr int TX = 40;      // slot columns of a tile"
+_TAIL_LEVELS = "constexpr int kLevels = 8;  // levels a block walks"
+_TAIL_BLOCKS = "return sizeof(T) == 8 ? 2 : 4;"
+_TAIL_THREADS = "constexpr int kThreads = 256;  // threads a block"
 
 
 def _sim1(blocks, smem, threads=256):
@@ -62,12 +74,42 @@ def _multi(seg_in, seg_out, blocks):
             (_MULTI_BLOCKS, f"return sizeof(T) == 8 ? 2 : {blocks};")]
 
 
+def _tracer_segments(seg_in, seg_out):
+    return [(_TRACER_SEG_IN, f"constexpr int kSegInTracer = {seg_in};"),
+            (_TRACER_SEG_OUT, f"constexpr int kSegOutTracer = {seg_out};")]
+
+
+def _tracer_tile(ty, tx, ld, blocks):
+    return [(_TRACER_TILE, f"using TracerTile = Tile<{ty}, {tx}, {ld}>;"),
+            (_TRACER_BLOCKS, _TRACER_BLOCKS.replace(": 4;", f": {blocks};"))]
+
+
+def _tail(ty, tx, levels, blocks, threads=256):
+    return [(_TAIL_TY, f"constexpr int TY = {ty};"), (_TAIL_TX, f"constexpr int TX = {tx};"),
+            (_TAIL_LEVELS, f"constexpr int kLevels = {levels};"),
+            (_TAIL_BLOCKS, f"return sizeof(T) == 8 ? 1 : {blocks};"),
+            (_TAIL_THREADS, f"constexpr int kThreads = {threads};  // threads a block")]
+
+
 _SIM1_CHAIN = "  if (tid < nc) {\n    T cp = T(0), dv = T(0), b_up = T(0);"
-_FIELD_START = ("  const int X1 = X + 1;\n  const int tid = threadIdx.x;\n\n"
-                "  // inner sweeps: fx1 of qx along rows")
+_FIELD_START = ("  const int X1 = X + 1;\n  const int tid = threadIdx.x;\n"
+                "  static_assert(TX % SO == 0")
 _STAGE_QX = "    cp_async(s_qx + m, src);"
 _STAGE_QY = "    cp_async(s_qy + m, src);"
 _STAGE_OPS = "      cp_async(s_crx + m, crx_p + gj * X1 + gi);"
+_TAIL_LEVEL = ("    if (k + 1 < k1) stage_level(k + 1, OFF_LEV + ((k + 1 - k0) & 1) * "
+               "kLevelVals);\n")
+_TAIL_COPY = ('  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n" ::"r"(d), "l"(src),\n'
+              '               "n"(sizeof(T)));')
+_FVTP2D_DIAGNOSTICS = {
+    "diagnostic: loads and barriers alone": [
+        (_FIELD_START, _FIELD_START.replace(
+            "threadIdx.x;\n", "threadIdx.x;\n  if (tid == 0 && s_qx[0] == T(12345)) "
+            "fx_p[0] = s_qy[1];\n  __syncthreads();\n  return;\n"))],
+    "diagnostic: passes alone": [
+        (_STAGE_QX, "    (void)src;"), (_STAGE_QY, "    (void)src;"),
+        (_STAGE_OPS, "      (void)gj;")],
+}
 
 #: diagnostics that time a part of a kernel (their results are wrong): sim1
 #: without its serial recurrence; the transport with its loads and barriers
@@ -78,14 +120,14 @@ DIAGNOSTICS = {
         "diagnostic: without the recurrence": [
             (_SIM1_CHAIN, _SIM1_CHAIN.replace("tid < nc", "tid < 0"))],
     },
-    "fvtp2d": {
+    "fvtp2d": _FVTP2D_DIAGNOSTICS,
+    "tracer": _FVTP2D_DIAGNOSTICS,
+    # the tail: every level's loads and barrier without its passes; the
+    # passes without any copy (on stale shared memory)
+    "d_sw_tail": {
         "diagnostic: loads and barriers alone": [
-            (_FIELD_START, _FIELD_START.replace(
-                "threadIdx.x;\n", "threadIdx.x;\n  if (tid == 0 && s_qx[0] == T(12345)) "
-                "fx_p[0] = s_qy[1];\n  __syncthreads();\n  return;\n"))],
-        "diagnostic: passes alone": [
-            (_STAGE_QX, "    (void)src;"), (_STAGE_QY, "    (void)src;"),
-            (_STAGE_OPS, "      (void)gj;")],
+            (_TAIL_LEVEL, _TAIL_LEVEL + "    if (k >= 0) continue;\n")],
+        "diagnostic: passes alone": [(_TAIL_COPY, "  (void)d;\n  (void)src;")],
     },
 }
 
@@ -109,54 +151,95 @@ CANDIDATES = {
         "segments 3 / 2, 5 blocks an SM": _multi(3, 2, 5),
         "segments 1 / 1, 6 blocks an SM": _multi(1, 1, 6),
     },
+    "tracer": {
+        "segments 3 / 2": _tracer_segments(3, 2),
+        "segments 2 / 4": _tracer_segments(2, 4),
+        "segments 4 / 4": _tracer_segments(4, 4),
+        "segments 6 / 4": _tracer_segments(6, 4),
+        "3 blocks an SM": _tracer_tile(20, 40, 47, 3),
+        "segments 6 / 4, 3 blocks an SM": _tracer_segments(6, 4) + _tracer_tile(20, 40, 47, 3),
+        "16 x 40 tiles": _tracer_tile(16, 40, 47, 4),
+        "24 x 40 tiles, 3 blocks an SM": _tracer_tile(24, 40, 47, 3),
+        "16 x 32 tiles (the multi-field kernel's)": _tracer_tile(16, 32, 41, 4),
+    },
+    "d_sw_tail": {
+        "8 x 40 slots, 16 levels a block": _tail(8, 40, 16, 4),
+        "8 x 40 slots, 4 levels a block": _tail(8, 40, 4, 4),
+        "8 x 40 slots, 3 blocks an SM": _tail(8, 40, 8, 3),
+        "12 x 40 slots, 3 blocks an SM": _tail(12, 40, 8, 3),
+        "16 x 40 slots, 2 blocks an SM": _tail(16, 40, 8, 2),
+        "16 x 32 slots, 3 blocks an SM": _tail(16, 32, 8, 3),
+        "8 x 32 slots, 5 blocks an SM": _tail(8, 32, 8, 5),
+        "8 x 40 slots, 384 threads, 2 blocks an SM": _tail(8, 40, 8, 2, 384),
+        "8 x 40 slots, 320 threads, 3 blocks an SM": _tail(8, 40, 8, 3, 320),
+        "6 x 40 slots, 4 blocks an SM": _tail(6, 40, 8, 4),
+        "6 x 40 slots, 5 blocks an SM": _tail(6, 40, 8, 5),
+        "10 x 40 slots, 3 blocks an SM": _tail(10, 40, 8, 3),
+    },
 }
 
+#: the kernel library each pick builds
+LIBRARY = {"tracer": "fvtp2d"}
 
-def build_candidates(name):
-    """``{candidate: CDLL}`` of the candidates of kernel ``name``, built in
-    parallel."""
-    src = (_build.CSRC / _build.SOURCES[name]).read_text()
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n, (label, subs) in enumerate({**CANDIDATES[name], **DIAGNOSTICS[name]}.items()):
+
+def candidate_sources(name):
+    """``{candidate: source text}`` of kernel ``name``; raises before any
+    build if a substitution's text is not in the source."""
+    src = (_build.CSRC / _build.SOURCES[LIBRARY.get(name, name)]).read_text()
+    texts = {}
+    for label, subs in {**CANDIDATES[name], **DIAGNOSTICS[name]}.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"{name} candidate {label!r}: {old!r} is not in the source")
             text = text.replace(old, new)
+        texts[label] = text
+    return texts
+
+
+def build_candidates(name):
+    """``{candidate: CDLL}`` of the candidates of kernel ``name``, built in
+    parallel; every build is waited for before a failure raises."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, (label, text) in enumerate(candidate_sources(name).items()):
         cu = out_dir / f"{name}_{n}.cu"
         cu.write_text(text)
         lib = out_dir / f"lib{name}_{n}.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                          text=True), lib)
-    libs = {}
+    libs, failed = {}, []
     for label, (p, lib) in procs.items():
         text, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"{name} candidate {label!r} failed to build:\n{text}")
+            failed.append(f"{name} candidate {label!r} failed to build:\n{text}")
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name} {label}: {line.strip()}")
         libs[label] = ctypes.CDLL(str(lib))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return libs
 
 
-def time_candidates(name, call, libs):
+def time_candidates(name, call, libs, reps=20):
     """Two rounds over the current build and the candidates."""
-    current = _build.library(name)
+    lib_name = LIBRARY.get(name, name)
+    current = _build.library(lib_name)
     order = {"current": current, **libs}
     ref = None
     for rnd in (1, 2):
         for label, lib in order.items():
-            _build._LIBS[name] = lib
+            _build._LIBS[lib_name] = lib
             out = ab.flat(call())
             ref = ref if ref is not None else out
             same = all(torch.equal(a, b) for a, b in zip(out, ref))
-            log(f"[variant] {name} {label} (round {rnd}): {chip_smoke.time_ms(call, 20):.4f} ms, "
-                f"the current build's bits: {same}")
-    _build._LIBS[name] = current
+            log(f"[variant] {name} {label} (round {rnd}): "
+                f"{chip_smoke.time_ms(call, reps):.4f} ms, the current build's bits: {same}")
+    _build._LIBS[lib_name] = current
 
 
 def main() -> int:
@@ -175,7 +258,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(f"card: {smi}")
-    _build.build(picked)
+    _build.build(sorted({LIBRARY.get(k, k) for k in picked}))
     if "sim1" in picked:
         from pace_tpu_torch.ops import sim1_kernel as s1k
 
@@ -191,6 +274,22 @@ def main() -> int:
         time_candidates("fvtp2d", lambda: fk.fvtp2d_multi_cuda(trio, *ops[:5], mfx=ops[5],
                                                                mfy=ops[6]),
                         build_candidates("fvtp2d"))
+        del trio, ops
+        torch.cuda.empty_cache()
+    if "tracer" in picked:
+        from pace_tpu_torch.ops import fvtp2d_kernel as fk
+
+        targs, _single = ab.tracer_operands(args.n, args.npz, dev)
+        time_candidates("tracer", lambda: fk.fvtp2d_tracer_cuda(*targs),
+                        build_candidates("tracer"), reps=5)
+        del targs, _single
+        torch.cuda.empty_cache()
+    if "d_sw_tail" in picked:
+        from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
+
+        (_label, t_args), _other = ab.tail_operands(args.n, args.npz, dev)
+        time_candidates("d_sw_tail", lambda: dtk.d_sw_tail_cuda(*t_args),
+                        build_candidates("d_sw_tail"))
     print(smi)
     return 0
 
