@@ -12,9 +12,12 @@ Phases (any failure raises and exits non-zero):
 2. kernel checks: each kernel against its plain PyTorch version on the card,
    at the shapes of the two slices at C192, npz=79, f32 (nq=9 tracers), with
    kernel, plain-version and one-call library times. Transport slice: the
-   halo exactly, fvtp2d within 4 ulp of max|flux| on the consumed region.
-   C-grid slice: the new halo plans exactly; d2a2c and the c_sw tail within
-   4 ulp of each output's maximum (d2a2c on the rings a consumer reads); the
+   halo exactly, the single-field fvtp2d bit-identical to the plain version
+   on the consumed region in both of the main path's forms (the corner pack
+   here, the heights' full y fold with the D-grid kernels). C-grid slice:
+   the new halo plans exactly; d2a2c and the c_sw tail within 4 ulp of each
+   output's maximum (d2a2c on the rings a consumer reads), the c_sw tail
+   bit-identical away from the cube corners; the
    hydrostatic chain, whose sums and cancelling differences amplify
    rounding, within three times the plain version's own float32 error,
    measured against its float64 evaluation (see ``check_against_f64``).
@@ -438,6 +441,49 @@ def consumed(t):
     return ring(t, 3)
 
 
+def check_single_field(label, args):
+    """The single-field transport kernel (``fvtp2d_cuda`` on ``args``)
+    against its plain version: bit-identical on the consumed region, or
+    raise. Returns the max abs error there."""
+    from pace_tpu_torch.ops import fvtp2d_kernel as fk
+
+    got = fk.fvtp2d_cuda(*args)
+    ref = fk.fvtp2d_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for nm, a, b in zip(("fx", "fy"), got, ref):
+        a, b = consumed(a), consumed(b)
+        e = float((a - b).abs().max())
+        n_diff = log_identical(f"fvtp2d {label} {nm} (consumed region; max abs err {e:.3e} of "
+                               f"max|flux| {float(b.abs().max()):.3e})", a, b)
+        if n_diff:
+            raise AssertionError(f"fvtp2d {label} {nm}: {n_diff} points differ from the plain "
+                                 f"version")
+        err = max(err, e)
+    return err
+
+
+def time_single_field(label, args):
+    """``[time]`` of the single-field transport on ``args``: kernel, plain
+    version, bound, share of the bound, achieved GB/s of the bound's bytes.
+    Returns the kernels line's numbers."""
+    from pace_tpu_torch.ops import fvtp2d_kernel as fk
+    from pace_tpu_torch.ops.folds import CornerPatch
+
+    qx, qy, crx, cry, xfx, yfx, area, hord = args
+    ms = time_ms(lambda: fk.fvtp2d_cuda(*args), 20)
+    plain_ms = time_ms(lambda: fk.fvtp2d_plain(*args), 3)
+    qy_t = qy.data if isinstance(qy, CornerPatch) else qy
+    byt = nbytes(qx, qy_t, crx, cry, xfx, yfx, area, crx, cry)  # + fx, fy
+    b_ms, b_by = bound(byt, FVTP2D_OPS_PER_POINT[6 if hord == 5 else hord] * qx.numel(),
+                       torch.float32)
+    log(f"[time] fvtp2d {label} {tuple(qx.shape)} f32 "
+        f"({'the corner pack' if isinstance(qy, CornerPatch) else 'a full qy'}): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} "
+        f"of the kernel's time, {byt / ms / 1e6:.1f} GB/s of the bound's bytes")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     """The run described above; the arguments exist to rehearse the script
     at a small size, and the card is always required."""
@@ -579,35 +625,17 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     log(f"[time] halo fold patch {tuple(src_flat.shape)} f32: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, torch.take {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
-    # --- fvtp2d, one field (delp), hord 6 and 8, area-flux weights
+    # --- fvtp2d, one field (delp), hord 6 and 8, area-flux weights, the
+    #     corner pack: bit-identical to the plain version on the consumed
+    #     region (the heights' form, a full qy, with the D-grid kernels below)
     ulp = torch.finfo(torch.float32).eps
     fv_err = 0.0
     for hord in (6, 8):
-        fx, fy = fk.fvtp2d_cuda(dpx, CornerPatch(dpp), crx, cry, xfx, yfx, grid.area, hord)
-        rx, ry = fk.fvtp2d_plain(dpx, CornerPatch(dpp), crx, cry, xfx, yfx, grid.area, hord)
-        torch.cuda.synchronize()
-        for nm, a, b in (("fx", fx, rx), ("fy", fy, ry)):
-            a, b = consumed(a), consumed(b)
-            err = (a - b).abs()
-            scale = float(b.abs().max())
-            tol = 4 * ulp * scale
-            n_bad = int((err > tol).sum())
-            e = float(err.max())
-            log(f"[check] fvtp2d hord {hord} {nm}: max abs err {e:.3e}, max rel err "
-                f"{e / scale:.3e} of max|flux| {scale:.3e}, points beyond 4 ulp: {n_bad}")
-            if n_bad:
-                raise AssertionError(f"fvtp2d hord {hord} {nm}: {n_bad} points beyond 4 ulp")
-            fv_err = max(fv_err, e)
+        args = (dpx, CornerPatch(dpp), crx, cry, xfx, yfx, grid.area, hord)
+        fv_err = max(fv_err, check_single_field(f"hord {hord} {tuple(dpx.shape)} the corner "
+                                                f"pack", args))
         if hord == 6:
-            args = (dpx, CornerPatch(dpp), crx, cry, xfx, yfx, grid.area, hord)
-            ms = time_ms(lambda: fk.fvtp2d_cuda(*args), 20)
-            plain_ms = time_ms(lambda: fk.fvtp2d_plain(*args), 3)
-            byt = nbytes(dpx, dpp, crx, cry, xfx, yfx, grid.area, fx, fy)
-            b_ms, b_by = bound(byt, FVTP2D_OPS_PER_POINT[hord] * dpx.numel(), torch.float32)
-            results["fvtp2d"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=None)
-            log(f"[time] fvtp2d hord 6 {tuple(dpx.shape)} f32: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            results["fvtp2d"] = time_single_field("hord 6, delp", args)
     results["fvtp2d"]["max_abs_err"] = fv_err
 
     # --- fvtp2d tracer block, nq=9, hord 8, mass-flux weights: bit-identical
@@ -767,6 +795,15 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                          "divg_d"), t_got, t_ref):
         t_err[nm] = check_close(f"c_sw tail {nm} (whole plane)", a, b,
                                 4 * ulp * float(b.abs().max()))
+        # bit-identical away from the cube corners (the plain version's
+        # three-quadrant mean there is a reciprocal multiply on the card)
+        far = away_from_cube_corners(cgrid, a.shape, dev)
+        n_far, n_near = int((a != b)[far].sum()), int((a != b)[~far].sum())
+        log(f"[check] c_sw tail {nm}: {n_far} of {int(far.sum())} points differ from the plain "
+            f"version away from the cube corners, {n_near} of {int((~far).sum())} at them")
+        if n_far:
+            raise AssertionError(f"c_sw tail {nm}: {n_far} points differ from the plain version "
+                                 f"away from the cube corners")
     ms = time_ms(lambda: ck.c_sw_tail_cuda(*t_args), 20)
     plain_ms = time_ms(lambda: c_sw_ops.c_sw_tail_plain(*t_args), 3)
     t_consts = [getattr(cgrid, c) for c in ck.CONSTS[:19]]
@@ -778,8 +815,10 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     results["c_sw_tail"] = dict(max_abs_err=max(t_err["uc_new"], t_err["vc_new"]), ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None)
+    t_bytes = nbytes(*t_args[:14], *t_consts, *t_got)
     log(f"[time] c_sw tail {tuple(delp_x.shape)} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the kernel's "
+        f"time, {t_bytes / ms / 1e6:.1f} GB/s of the bound's bytes")
 
     # the new exchange plans, on the path's own fields
     divg = t_got[8]
@@ -990,6 +1029,13 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     fl = fvtp2d_best(chalf.delp_x, chalf.delp_y, crx, cry, xfx, yfx, sgrid.area, scfg.hord_dp)
     mfx, mfy = shalo.sync_vector_interfaces(fl.fx, fl.fy, kind="cgrid")
     del fl
+    # the single-field transport's other form on the main path: updatedz_d's
+    # interface heights (hord 5, a full qy, K = npz + 1)
+    h_args = (chalf.zh_x, chalf.zh_y, *(nh_ops._to_iface(t) for t in (crx, cry, xfx, yfx)),
+              sgrid.area, 5)
+    check_single_field(f"hord 5 {tuple(chalf.zh_x.shape)} a full qy (the heights)", h_args)
+    time_single_field("hord 5, the heights", h_args)
+    del h_args
     trio = [(chalf.pt_x, chalf.pt_y, scfg.hord_tm, True),
             (vort_x, CornerPatch(vort_p), scfg.hord_vt, False),
             (chalf.w_x, chalf.w_y, scfg.hord_vt, True)]

@@ -21,13 +21,23 @@
 // Bound on an H100: bytes. About 150 flops per slot and level against 23
 // field values moved (~1.7 GB, ~0.51 ms at 3.35 TB/s for a C192 npz=79 f32
 // call; ~0.04 ms of arithmetic at 67 TFLOP/s).
-// Design: one block per (16x32 slot tile, level, shard). Stage A computes
-// the twelve intermediates that neighbours share (ut, vt, xfx, yfx, the
-// upwind fluxes fx1/fy1 and their pt-weighted forms, ke, vorticity, the
-// divergence legs uf/vf) on the tile plus a one-slot ring, straight from
-// global memory, into shared memory; stage B combines them into the nine
-// outputs. Device memory sees each field once plus the ring overlap
-// (1.2x); the constant planes are re-read per level (they fit in L2).
+// Design: one block per (16x40 slot tile, level, shard), 384 threads. Stage
+// A computes the twelve intermediates that neighbours share (ut, vt, xfx,
+// yfx, the upwind fluxes fx1/fy1 and their pt-weighted forms, ke,
+// vorticity, the divergence legs uf/vf) on the tile plus a one-slot ring,
+// straight from global memory, into shared memory; stage B combines them
+// into the nine outputs. Device memory sees each field once plus the ring
+// overlap (1.2x); the constant planes are re-read per level (they fit in
+// L2). What holds it is the latency of its reads, hidden by warps: at 40
+// registers four blocks of 384 threads (48 warps) fill an SM, stage A's
+// 18 x 42 points take two rounds of the block's threads and stage B's 640
+// slots two (16x32 slots and 256 threads: three and two), and the 16x40
+// tiles leave 5% of the 199 x 199 slot plane idle (16x32: 15%). Staging
+// the stencils in shared memory by cp.async, with constant planes kept
+// across levels and the next level in flight, was built and measured
+// slower on an H100: the windows and the warps they cost outweigh the L1
+// reads (PERF.md). Tile and threads were chosen by timing the candidates
+// (tools/torch_kernel_variants.py).
 // The cube-corner points (a handful per shard) are patched by a second,
 // tiny launch that reads xfx/yfx back: one thread per (corner, level,
 // shard).
@@ -37,12 +47,12 @@
 namespace {
 
 constexpr int TY = 16;
-constexpr int TX = 32;
+constexpr int TX = 40;
 constexpr int RY = TY + 2;  // region rows j0-1 .. j0+TY
 constexpr int RX = TX + 2;
 constexpr int NR = RY * RX;
 constexpr int kArrays = 12;
-constexpr int kThreads = 256;
+constexpr int kThreads = 384;
 
 template <typename T>
 struct Args {

@@ -1,15 +1,15 @@
 // Lin & Rood (1996) 2-D PPM flux-form transport, fused in one kernel.
 //
 // Replaces pace_tpu/ops/fvtp2d_pallas.py `_kernel` (pallas_call at :212,
-// entry fvtp2d_pallas :229): fvtp2d_kernel with NQ = 1 (mass-flux weights
-// on or off); with NQ > 1 it runs a stacked block of NQ tracers, one block
-// per tracer. fvtp2d_multi_kernel, further down, replaces `_kernel_multi`
-// (pallas_call at :390, entry fvtp2d_multi_pallas :578): up to four
-// separate fields, each with its own hord, weighting and y-fold form, in
-// one launch. fvtp2d_tracer_kernel, last, replaces `_kernel_tracer`
-// (pallas_call at :501, entry fvtp2d_tracer_pallas :519): a stacked block
-// of tracers that share the Courant numbers, area fluxes, cell areas and
-// mass fluxes, walked by each block.
+// entry fvtp2d_pallas :229): fvtp2d_single_kernel, last, with NQ = 1
+// (mass-flux weights on or off); with NQ > 1 it runs a stacked block of NQ
+// tracers, each tracer's fluxes those of a single-field launch.
+// fvtp2d_multi_kernel replaces `_kernel_multi` (pallas_call at :390, entry
+// fvtp2d_multi_pallas :578): up to four separate fields, each with its own
+// hord, weighting and y-fold form, in one launch. fvtp2d_tracer_kernel
+// replaces `_kernel_tracer` (pallas_call at :501, entry fvtp2d_tracer_pallas
+// :519): a stacked block of tracers that share the Courant numbers, area
+// fluxes, cell areas and mass fluxes, walked by each block.
 //
 //     Fx = 1/2 [ X(q) + X(Y(q)) ] * wx        Fy = 1/2 [ Y(q) + Y(X(q)) ] * wy
 //
@@ -27,28 +27,21 @@
 // (hord 8, per-cell PPM terms counted once; four 1-D PPM evaluations, two
 // inner updates), ~0.04 ms at the 67 TFLOP/s f32 rate for a C192 npz=79
 // field against ~0.16 ms for its ~520 MB of operand and result traffic at
-// 3.35 TB/s. fvtp2d_kernel recomputes the per-cell dm/al terms for each
-// interface it evaluates (about 2.5x the needed flops at hord 8).
-// Design of fvtp2d_kernel: one thread block per (output tile, level, shard,
-// tracer) stages q, the y-fold corner pack, crx/cry/xfx/yfx/area with a
-// 3-cell stencil halo in shared memory
-// and keeps every intermediate (the inner fluxes fx1/fy1 and the inner
-// updates, written in place over the staged q) there: device memory sees
-// one read of each operand tile (plus the halo overlap, 1.7x at 16x32) and
-// one write of fx and fy. Tracers of one (tile, level) run in consecutive
-// blocks so the shared operands are served from L2 after the first.
+// 3.35 TB/s. Every kernel of this file stages its tile and the stencil halo
+// in shared memory by cp.async and keeps every intermediate (the inner
+// fluxes and the inner updates) there: device memory sees one read of each
+// operand tile (plus the halo overlap) and one write of fx and fy.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int R = 3;  // one PPM sweep: interface i reads cells i-3 .. i+2
+// the multi-field kernel's tile: TY x TX outputs, a window of SY x SX cells
 constexpr int TY = 16;
 constexpr int TX = 32;
 constexpr int SY = TY + 2 * R;
 constexpr int SX = TX + 2 * R;
-constexpr int NS = SY * SX;  // staged points per array
-constexpr int kArrays = 9;   // qx, qy, crx, cry, xfx, yfx, area, fx1, fy1
 constexpr int kThreads = 256;
 
 template <typename T>
@@ -104,53 +97,12 @@ __device__ __forceinline__ void mono_b(T q, T dm, T al, T al_next, T& bl, T& br)
   br = xt2 >= T(0) ? brm : -brm;
 }
 
-// Interface value of the upstream PPM profile mean (ppm._flux_1d) at the
-// interface between cells a = q[-1] and b = q[0]; q[-3..2] given.
-template <typename T, int HORD>
-__device__ __forceinline__ T flux_1d(T qm3, T qm2, T qm1, T q0, T qp1, T qp2, T c) {
-  if constexpr (HORD == 1) {
-    return c > T(0) ? qm1 : q0;
-  } else {
-  T bl_m1, br_m1, bl_0, br_0;
-  if constexpr (HORD == 8) {
-    const T c3 = T(1.0 / 3.0);
-    const T dm_m2 = dm_mono(qm3, qm2, qm1);
-    const T dm_m1 = dm_mono(qm2, qm1, q0);
-    const T dm_0 = dm_mono(qm1, q0, qp1);
-    const T dm_p1 = dm_mono(q0, qp1, qp2);
-    const T al_m1 = T(0.5) * (qm2 + qm1) + c3 * (dm_m2 - dm_m1);
-    const T al_0 = T(0.5) * (qm1 + q0) + c3 * (dm_m1 - dm_0);
-    const T al_p1 = T(0.5) * (q0 + qp1) + c3 * (dm_0 - dm_p1);
-    mono_b(qm1, dm_m1, al_m1, al_0, bl_m1, br_m1);
-    mono_b(q0, dm_0, al_0, al_p1, bl_0, br_0);
-  } else {
-    const T c7 = T(7.0 / 12.0);
-    const T c1 = T(1.0 / 12.0);
-    const T al_m1 = c7 * (qm2 + qm1) - c1 * (qm3 + q0);
-    const T al_0 = c7 * (qm1 + q0) - c1 * (qm2 + qp1);
-    const T al_p1 = c7 * (q0 + qp1) - c1 * (qm1 + qp2);
-    bl_m1 = al_m1 - qm1;
-    br_m1 = al_0 - qm1;
-    bl_0 = al_0 - q0;
-    br_0 = al_p1 - q0;
-    if constexpr (HORD == 7) {
-      positive_limit(qm1, bl_m1, br_m1);
-      positive_limit(q0, bl_0, br_0);
-    }
-  }
-  const T b0_m1 = bl_m1 + br_m1;
-  const T b0_0 = bl_0 + br_0;
-  const T f_pos = qm1 + (T(1.0) - c) * (br_m1 - c * b0_m1);
-  const T f_neg = q0 + (T(1.0) + c) * (bl_0 + c * b0_0);
-  return c > T(0) ? f_pos : f_neg;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The interface values of flux_1d with each per-cell term formed once, for a
-// thread that walks a line: al once per interface, (bl, br, b0) once per
-// cell, and each interface's value from its two cells' terms. Every term is
-// formed by flux_1d's own expression, so the values are its bits.
+// The interface values of ppm._flux_1d with each per-cell term formed once,
+// for a thread that walks a line: al once per interface, (bl, br, b0) once
+// per cell, and each interface's value from its two cells' terms. Every term
+// is formed by the plain version's own expression, so the values are its
+// bits.
 
 // al of the interface between cells qm1 and q0 (hord 5, 6, 7)
 template <typename T>
@@ -258,185 +210,13 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
-// Grid: x = tile * NQ + tracer, y = level, z = shard.
-// qy_mode 0: qy is a full (S, NQ, K, Y, X) array; 1: qy is the y-fold
-// corner pack (S, NQ, K, 2h, 2h) applied over qx ([[SW, SE], [NW, NE]]).
-template <typename T, int HORD>
-__global__ void __launch_bounds__(kThreads) fvtp2d_kernel(
-    const T* __restrict__ qx, const T* __restrict__ qy, int qy_mode, int h,
-    const T* __restrict__ crx, const T* __restrict__ cry,
-    const T* __restrict__ xfx, const T* __restrict__ yfx,
-    const T* __restrict__ area, const T* __restrict__ mfx,
-    const T* __restrict__ mfy, T* __restrict__ fx, T* __restrict__ fy,
-    int NQ, int K, int Y, int X) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  T* s_qx = sm;  // later overwritten by the inner update q_j
-  T* s_qy = sm + NS;  // later overwritten by the inner update q_i
-  T* s_crx = sm + 2 * NS;
-  T* s_cry = sm + 3 * NS;
-  T* s_xfx = sm + 4 * NS;
-  T* s_yfx = sm + 5 * NS;
-  T* s_area = sm + 6 * NS;
-  T* s_fx1 = sm + 7 * NS;
-  T* s_fy1 = sm + 8 * NS;
-
-  const int tiles_x = (X + TX - 1) / TX;
-  const int tile = blockIdx.x / NQ;
-  const int t = blockIdx.x - tile * NQ;
-  const int j0 = (tile / tiles_x) * TY;
-  const int i0 = (tile - (tile / tiles_x) * tiles_x) * TX;
-  const int k = blockIdx.y;
-  const int s = blockIdx.z;
-  const int X1 = X + 1;
-  const int Y1 = Y + 1;
-
-  const long long qlev = ((long long)(s * NQ + t) * K + k);
-  const long long oplev = (long long)s * K + k;
-  const T* qx_p = qx + qlev * Y * X;
-  const T* crx_p = crx + oplev * Y * X1;
-  const T* xfx_p = xfx + oplev * Y * X1;
-  const T* cry_p = cry + oplev * Y1 * X;
-  const T* yfx_p = yfx + oplev * Y1 * X;
-  const T* area_p = area + (long long)s * Y * X;
-
-  // --- stage the tile and its stencil halo (wrapped like a roll)
-  for (int idx = threadIdx.x; idx < NS; idx += kThreads) {
-    const int a = idx / SX;
-    const int b = idx - a * SX;
-    const int gj = wrap(j0 - R + a, Y);
-    const int gi = wrap(i0 - R + b, X);
-    const T vx = qx_p[gj * X + gi];
-    s_qx[idx] = vx;
-    T vy;
-    if (qy_mode == 0) {
-      vy = qy[qlev * Y * X + gj * X + gi];
-    } else {
-      const int pr = gj < h ? gj : (gj >= Y - h ? gj - (Y - h) + h : -1);
-      const int pc = gi < h ? gi : (gi >= X - h ? gi - (X - h) + h : -1);
-      vy = (pr >= 0 && pc >= 0) ? qy[qlev * 4 * h * h + pr * 2 * h + pc] : vx;
-    }
-    s_qy[idx] = vy;
-    s_crx[idx] = crx_p[gj * X1 + gi];
-    s_xfx[idx] = xfx_p[gj * X1 + gi];
-    s_cry[idx] = cry_p[gj * X + gi];
-    s_yfx[idx] = yfx_p[gj * X + gi];
-    s_area[idx] = area_p[gj * X + gi];
-  }
-  __syncthreads();
-
-  // --- inner 1-D fluxes: fx1 of qx (all rows, interface cols R..TX+R),
-  //     fy1 of qy (interface rows R..TY+R, all cols)
-  for (int idx = threadIdx.x; idx < SY * (TX + 1); idx += kThreads) {
-    const int a = idx / (TX + 1);
-    const int b = R + idx - a * (TX + 1);
-    const T* r = s_qx + a * SX + b;
-    s_fx1[a * SX + b] =
-        flux_1d<T, HORD>(r[-3], r[-2], r[-1], r[0], r[1], r[2], s_crx[a * SX + b]);
-  }
-  for (int idx = threadIdx.x; idx < (TY + 1) * SX; idx += kThreads) {
-    const int a = R + idx / SX;
-    const int b = idx - (a - R) * SX;
-    const T* c = s_qy + a * SX + b;
-    s_fy1[a * SX + b] = flux_1d<T, HORD>(c[-3 * SX], c[-2 * SX], c[-SX], c[0],
-                                         c[SX], c[2 * SX], s_cry[a * SX + b]);
-  }
-  __syncthreads();
-
-  // --- inner updates, in place over the staged fields:
-  //     q_i = (qy*area + (gy - gy[+1])) / (area + (yfx - yfx[+1])), gy = yfx*fy1
-  //     q_j = (qx*area + (gx - gx[+1])) / (area + (xfx - xfx[+1])), gx = xfx*fx1
-  for (int idx = threadIdx.x; idx < TY * (SX - 1); idx += kThreads) {
-    const int a = R + idx / (SX - 1);
-    const int b = idx - (a - R) * (SX - 1);
-    const int m = a * SX + b;
-    const T g0 = s_yfx[m] * s_fy1[m];
-    const T g1 = s_yfx[m + SX] * s_fy1[m + SX];
-    const T ra = s_area[m] + (s_yfx[m] - s_yfx[m + SX]);
-    s_qy[m] = (s_qy[m] * s_area[m] + (g0 - g1)) / ra;
-  }
-  for (int idx = threadIdx.x; idx < (SY - 1) * TX; idx += kThreads) {
-    const int a = idx / TX;
-    const int b = R + idx - a * TX;
-    const int m = a * SX + b;
-    const T g0 = s_xfx[m] * s_fx1[m];
-    const T g1 = s_xfx[m + 1] * s_fx1[m + 1];
-    const T ra = s_area[m] + (s_xfx[m] - s_xfx[m + 1]);
-    s_qx[m] = (s_qx[m] * s_area[m] + (g0 - g1)) / ra;
-  }
-  __syncthreads();
-
-  // --- outer sweeps and the weighted results
-  T* fx_p = fx + qlev * Y * X1;
-  T* fy_p = fy + qlev * Y1 * X;
-  const T* mfx_p = mfx ? mfx + oplev * Y * X1 : nullptr;
-  const T* mfy_p = mfy ? mfy + oplev * Y1 * X : nullptr;
-  for (int idx = threadIdx.x; idx < TY * TX; idx += kThreads) {
-    const int a = idx / TX;
-    const int b = idx - a * TX;
-    const int j = j0 + a;
-    const int i = i0 + b;
-    if (j >= Y || i >= X) continue;
-    const int m = (a + R) * SX + (b + R);
-    const T* r = s_qy + m;  // q_i along the row
-    const T fxo = flux_1d<T, HORD>(r[-3], r[-2], r[-1], r[0], r[1], r[2], s_crx[m]);
-    const T wx = mfx_p ? mfx_p[j * X1 + i] : s_xfx[m];
-    fx_p[j * X1 + i] = (T(0.5) * (fxo + s_fx1[m])) * wx;
-    const T* c = s_qx + m;  // q_j along the column
-    const T fyo = flux_1d<T, HORD>(c[-3 * SX], c[-2 * SX], c[-SX], c[0], c[SX],
-                                   c[2 * SX], s_cry[m]);
-    const T wy = mfy_p ? mfy_p[j * X + i] : s_yfx[m];
-    fy_p[j * X + i] = (T(0.5) * (fyo + s_fy1[m])) * wy;
-    if (i == X - 1) fx_p[j * X1 + X] = T(0);
-    if (j == Y - 1) fy_p[Y * X + i] = T(0);
-  }
-}
-
-template <typename T, int HORD>
-int launch_hord(const void* qx, const void* qy, int qy_mode, int h,
-                const void* crx, const void* cry, const void* xfx,
-                const void* yfx, const void* area, const void* mfx,
-                const void* mfy, void* fx, void* fy, int S, int NQ, int K,
-                int Y, int X, void* stream) {
-  const int tiles = ((Y + TY - 1) / TY) * ((X + TX - 1) / TX);
-  const size_t smem = sizeof(T) * kArrays * NS;
-  auto kern = fvtp2d_kernel<T, HORD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(tiles * NQ, K, S);
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)qx, (const T*)qy, qy_mode, h, (const T*)crx, (const T*)cry,
-      (const T*)xfx, (const T*)yfx, (const T*)area, (const T*)mfx,
-      (const T*)mfy, (T*)fx, (T*)fy, NQ, K, Y, X);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* qx, const void* qy, int qy_mode, int h, const void* crx,
-           const void* cry, const void* xfx, const void* yfx, const void* area,
-           const void* mfx, const void* mfy, void* fx, void* fy, int S, int NQ,
-           int K, int Y, int X, int hord, void* stream) {
-#define PACE_FVTP2D_ARGS \
-  qx, qy, qy_mode, h, crx, cry, xfx, yfx, area, mfx, mfy, fx, fy, S, NQ, K, Y, X, stream
-  switch (hord) {
-    case 1: return launch_hord<T, 1>(PACE_FVTP2D_ARGS);
-    case 5:
-    case 6: return launch_hord<T, 6>(PACE_FVTP2D_ARGS);
-    case 7: return launch_hord<T, 7>(PACE_FVTP2D_ARGS);
-    case 8: return launch_hord<T, 8>(PACE_FVTP2D_ARGS);
-    default: return -1;
-  }
-#undef PACE_FVTP2D_ARGS
-}
-
 // ---------------------------------------------------------------------------
 // Several fields that share crx, cry, xfx, yfx, area and the mass fluxes
 // (d_sw's pt / vorticity / w), each with its own hord, its own weighting
 // (mass fluxes or area fluxes) and its own y-fold form (full array or corner
 // pack), in one launch. Every field's fx, fy equal the single-field launch's
-// bit for bit (zero outermost interface column / row included): the stages
-// are fvtp2d_kernel's, and the 1-D sweeps give flux_1d's values by ppm_sweep.
+// bit for bit (zero outermost interface column / row included): every
+// kernel of this file runs the same stages (transport_field) on its tile.
 // Bound on an H100: bytes. With three fields at C192 npz=79 f32: 3 qx, 4
 // shared operands, 2 mass fluxes in, 6 flux arrays out, about 15 fields
 // (~1.1 GB, ~0.33 ms at 3.35 TB/s) against 3 x 76 operations per point at
@@ -582,12 +362,41 @@ __device__ __forceinline__ void stage_field(
   }
 }
 
+// The operands of one level into the window by cp.async (no commit): crx,
+// cry, xfx, yfx and the cell areas, NSM values apart from s_ops. (The
+// multi-field and tracer kernels stage their shared operands with the same
+// loop written inline: calling this routine there cost row 3 about 1% on an
+// H100, PERF.md.)
+template <typename T, class G>
+__device__ __forceinline__ void stage_operands(
+    T* s_ops, const T* __restrict__ crx_p, const T* __restrict__ cry_p,
+    const T* __restrict__ xfx_p, const T* __restrict__ yfx_p, const T* __restrict__ area_p,
+    const Window<G>& win, int X) {
+  constexpr int SY = G::SY, SX = G::SX, LD = G::LD, NSM = G::NSM, kStageRows = G::kStageRows;
+  const int t = threadIdx.x;
+  if (t >= kStageRows * SX) return;
+  const int X1 = X + 1;
+  const int b = t % SX;
+  const int gi = win.gi[b];
+  for (int a = t / SX; a < SY; a += kStageRows) {
+    const int m = a * LD + b;
+    const int gj = win.gj[a];
+    cp_async(s_ops + m, crx_p + gj * X1 + gi);
+    cp_async(s_ops + 2 * NSM + m, xfx_p + gj * X1 + gi);
+    cp_async(s_ops + NSM + m, cry_p + gj * X + gi);
+    cp_async(s_ops + 3 * NSM + m, yfx_p + gj * X + gi);
+    cp_async(s_ops + 4 * NSM + m, area_p + gj * X + gi);
+  }
+}
+
 // One field through the staged tile: the inner sweeps, the inner updates in
 // place, the outer sweeps and the weighted results. All threads of the block
-// call it together; it ends on a barrier so the buffer may be refilled.
+// call it together; it ends on a barrier so the buffers may be refilled.
 // G: the tile. SI, SO: the interfaces a thread walks in an inner and an
-// outer sweep.
-template <typename T, int HORD, class G = MultiTile, int SI = kSegIn, int SO = kSegOut>
+// outer sweep. From sm, in arrays of NSM values: the staged crx, cry, xfx,
+// yfx and area, and at array FLUX room for the inner fluxes fx1, fy1.
+template <typename T, int HORD, class G = MultiTile, int SI = kSegIn, int SO = kSegOut,
+          int FLUX = 9>
 __device__ void transport_field(
     T* sm, T* s_qx, T* s_qy, const T* __restrict__ wx_p,
     const T* __restrict__ wy_p, T* __restrict__ fx_p, T* __restrict__ fy_p, int j0, int i0,
@@ -598,8 +407,8 @@ __device__ void transport_field(
   const T* s_xfx = sm + 2 * NSM;
   const T* s_yfx = sm + 3 * NSM;
   const T* s_area = sm + 4 * NSM;
-  T* s_fx1 = sm + 9 * NSM;
-  T* s_fy1 = sm + 10 * NSM;
+  T* s_fx1 = sm + FLUX * NSM;
+  T* s_fy1 = sm + (FLUX + 1) * NSM;
   const int X1 = X + 1;
   const int tid = threadIdx.x;
   static_assert(TX % SO == 0 && TY % SO == 0, "outer segments tile the tile");
@@ -847,7 +656,7 @@ int launch_multi(const void* const* ptrs, const int* modes, int n, int h,
 // A stacked tracer block (S, NQ, K, Y, X) that shares crx, cry, xfx, yfx,
 // area and the mass fluxes, every tracer with one hord and one y-fold form.
 // Each tracer's fx, fy equal the single-field launch's bit for bit (and
-// fvtp2d_kernel's with NQ tracers, which launches a block per tracer).
+// fvtp2d_single_kernel's with NQ tracers, whose blocks hold one tracer each).
 // Bound on an H100: bytes. At C192 npz=79 with nine tracers and the corner
 // pack: 9 qx, 9 fx, 9 fy, the four shared operands, the two mass fluxes and
 // the packs, about 33 fields (~2.5 GB, ~0.74 ms at 3.35 TB/s), against 9 x
@@ -893,7 +702,7 @@ constexpr int tracer_blocks() {
   return sizeof(T) == 8 ? 2 : 4;
 }
 
-// Grid: x = tile, y = level, z = shard. qy_mode as fvtp2d_kernel's.
+// Grid: x = tile, y = level, z = shard. qy_mode as fvtp2d_single_kernel's.
 template <typename T, int HORD>
 __global__ void __launch_bounds__(kThreads, tracer_blocks<T>())
 fvtp2d_tracer_kernel(
@@ -1011,6 +820,130 @@ int launch_tracer(const void* qx, const void* qy, int qy_mode, int h, const void
     default: return -1;
   }
 #undef PACE_TRACER_ARGS
+}
+
+// ---------------------------------------------------------------------------
+// One field (S, K, Y, X) with its own Courant numbers and area fluxes at
+// every level (d_sw's delp mass fluxes, updatedz_d's interface heights); with
+// NQ > 1 a stacked block (S, NQ, K, Y, X) of fields that share them, each
+// tracer's fluxes those of a single-field launch.
+// Bound on an H100: bytes. At C192 npz=79 f32 with the corner pack and
+// area-flux weights: qx, crx, cry, xfx, yfx, area and the pack in, fx and fy
+// out, about 7 fields (~0.52 GB, ~0.16 ms at 3.35 TB/s), against 76
+// operations per point at hord 6 (~0.02 ms at 67 TFLOP/s).
+// Design: the stages of the multi-field and tracer kernels (form_window,
+// the operands' staging, stage_field, transport_field) on a tile of its
+// own, one block per (20 x 40 tile, level, shard[, tracer]):
+// - the window's rows and columns are formed once a block; the operands and
+//   the field arrive by cp.async with no modulo per staged value;
+// - the 1-D sweeps by ppm_sweep in segments of kSegInSingle / kSegOutSingle
+//   interfaces, the results stored from shared memory with a warp's lanes
+//   on consecutive interfaces;
+// - the tile (SingleTile) cuts the 198 x 198 plane into 10 x 5 tiles of 20 x
+//   40 with 1% idle (16 x 32: 13 x 7 with 16% idle); rows LD = 47 values
+//   apart (odd: the lanes of a warp on different rows read different banks);
+// - what holds it is its passes, not its loads (PERF.md): the passes need
+//   warps, so a block stages one level and no more, 9 arrays of 26 x 47
+//   values, 44 KB of float, four blocks an SM at 64 registers. A block that
+//   walks a run of levels with the next level in flight by cp.async (two
+//   level buffers, three blocks an SM) and the tracer kernel at NQ = 1 were
+//   built and measured slower on an H100 (PERF.md).
+// Tile, segment lengths and blocks an SM were chosen by timing the
+// candidates on an H100 (tools/torch_kernel_variants.py, PERF.md).
+
+constexpr int kSegInSingle = 3;   // interfaces a thread walks in an inner sweep
+constexpr int kSegOutSingle = 4;  // ... in an outer sweep
+using SingleTile = Tile<20, 40, 47>;
+// crx, cry, xfx, yfx, area, qx, qy, fx1, fy1
+constexpr int kArraysSingle = 9;
+
+// Blocks per SM that the single-field kernel is compiled for (shared memory
+// allows five of float, two of double).
+template <typename T>
+constexpr int single_blocks() {
+  return sizeof(T) == 8 ? 2 : 4;
+}
+
+// Grid: x = tile, y = level, z = shard * NQ + tracer.
+// qy_mode 0: qy is a full (S, NQ, K, Y, X) array; 1: qy is the y-fold
+// corner pack (S, NQ, K, 2h, 2h) applied over qx ([[SW, SE], [NW, NE]]).
+template <typename T, int HORD>
+__global__ void __launch_bounds__(kThreads, single_blocks<T>())
+fvtp2d_single_kernel(
+    const T* __restrict__ qx, const T* __restrict__ qy, int qy_mode, int h,
+    const T* __restrict__ crx, const T* __restrict__ cry,
+    const T* __restrict__ xfx, const T* __restrict__ yfx,
+    const T* __restrict__ area, const T* __restrict__ mfx,
+    const T* __restrict__ mfy, T* __restrict__ fx, T* __restrict__ fy,
+    int NQ, int K, int Y, int X) {
+  using G = SingleTile;
+  constexpr int TY = G::TY, TX = G::TX, NSM = G::NSM;
+  extern __shared__ unsigned char smem_raw[];
+  // crx, cry, xfx, yfx, area, qx, qy, fx1, fy1
+  T* sm = reinterpret_cast<T*>(smem_raw);
+
+  const int tiles_x = (X + TX - 1) / TX;
+  const int j0 = (blockIdx.x / tiles_x) * TY;
+  const int i0 = (blockIdx.x - (blockIdx.x / tiles_x) * tiles_x) * TX;
+  const int s = blockIdx.z / NQ;
+  const int X1 = X + 1;
+  const int Y1 = Y + 1;
+  const long long lev = (long long)s * K + blockIdx.y;
+  const long long q = (long long)blockIdx.z * K + blockIdx.y;  // the plane (s, tracer, k)
+  __shared__ Window<G> win;
+  form_window(win, j0, i0, h, Y, X);
+  __syncthreads();
+
+  stage_operands(sm, crx + lev * Y * X1, cry + lev * Y1 * X, xfx + lev * Y * X1,
+                 yfx + lev * Y1 * X, area + (long long)s * Y * X, win, X);
+  stage_field(sm + 5 * NSM, sm + 6 * NSM, qx + q * Y * X,
+              qy + (qy_mode ? q * 4 * h * h : q * Y * X), qy_mode, h, win, X);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  transport_field<T, HORD, G, kSegInSingle, kSegOutSingle, 7>(
+      sm, sm + 5 * NSM, sm + 6 * NSM, mfx ? mfx + lev * Y * X1 : nullptr,
+      mfy ? mfy + lev * Y1 * X : nullptr, fx + q * Y * X1, fy + q * Y1 * X, j0, i0, Y, X);
+}
+
+template <typename T, int HORD>
+int launch_single_hord(const void* qx, const void* qy, int qy_mode, int h,
+                       const void* crx, const void* cry, const void* xfx,
+                       const void* yfx, const void* area, const void* mfx,
+                       const void* mfy, void* fx, void* fy, int S, int NQ, int K,
+                       int Y, int X, void* stream) {
+  using G = SingleTile;
+  const int tiles = ((Y + G::TY - 1) / G::TY) * ((X + G::TX - 1) / G::TX);
+  const size_t smem = sizeof(T) * kArraysSingle * G::NSM;
+  auto kern = fvtp2d_single_kernel<T, HORD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(tiles, K, S * NQ);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)qx, (const T*)qy, qy_mode, h, (const T*)crx, (const T*)cry,
+      (const T*)xfx, (const T*)yfx, (const T*)area, (const T*)mfx,
+      (const T*)mfy, (T*)fx, (T*)fy, NQ, K, Y, X);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* qx, const void* qy, int qy_mode, int h, const void* crx,
+           const void* cry, const void* xfx, const void* yfx, const void* area,
+           const void* mfx, const void* mfy, void* fx, void* fy, int S, int NQ,
+           int K, int Y, int X, int hord, void* stream) {
+  if (NQ < 1) return -2;
+#define PACE_FVTP2D_ARGS \
+  qx, qy, qy_mode, h, crx, cry, xfx, yfx, area, mfx, mfy, fx, fy, S, NQ, K, Y, X, stream
+  switch (hord) {
+    case 1: return launch_single_hord<T, 1>(PACE_FVTP2D_ARGS);
+    case 5:
+    case 6: return launch_single_hord<T, 6>(PACE_FVTP2D_ARGS);
+    case 7: return launch_single_hord<T, 7>(PACE_FVTP2D_ARGS);
+    case 8: return launch_single_hord<T, 8>(PACE_FVTP2D_ARGS);
+    default: return -1;
+  }
+#undef PACE_FVTP2D_ARGS
 }
 
 }  // namespace

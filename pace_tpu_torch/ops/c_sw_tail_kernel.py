@@ -57,7 +57,11 @@ OUT_STAGGER = (_CELL, _CELL, _XI, _YI, _XI, _YI, _XI, _YI, _CORNER)
 
 
 def _fn(dtype):
-    fn = getattr(_build.library("c_sw_tail"), _FN[dtype])
+    return set_argtypes(getattr(_build.library("c_sw_tail"), _FN[dtype]))
+
+
+def set_argtypes(fn):
+    """Declare the C entry's argument types on ``fn``; returns it."""
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, ctypes.c_double, P, P, P, I, I, I, I, I, P]
@@ -91,26 +95,42 @@ def c_sw_tail_cuda(u, v, delp, pt, uc, vc, uc_x, vc_x, uc_y, vc_y,
     S, K, Y, X = delp.shape
     fields = dict(zip(FIELDS, (u, v, delp, pt, uc, vc, uc_x, vc_x, uc_y, vc_y,
                                ua, va, va_x, ua_y)))
-    consts = {n: getattr(grid, n) for n in CONSTS[:19]}
-    consts.update(zip(CONSTS[19:], divergence_edge_weights(grid)))
+    const_list = constants(grid)
+    consts = dict(zip(CONSTS, const_list))
     named = [(n, t, (S, K, Y + _FIELD_STAGGER[n][0], X + _FIELD_STAGGER[n][1]))
              for n, t in fields.items()]
     named += [(n, consts[n], (S, Y + dy, X + dx)) for n, (dy, dx) in _CONST_STAGGER.items()]
     named += [("edge_y", consts["edge_y"], (S, Y + 1, 1)),
               ("edge_x", consts["edge_x"], (S, 1, X + 1))]
     check_operands("c_sw tail kernel", named, delp)
+    outs = call(_fn(delp.dtype), [fields[n] for n in FIELDS], const_list, grid, dt2,
+                _build.stream_handle(delp.device))
+    LAUNCHES["c_sw_tail"] += 1
+    return outs
+
+
+def constants(grid):
+    """The constant planes of ``grid`` in the order of :data:`CONSTS`."""
+    return [getattr(grid, n) for n in CONSTS[:19]] + list(divergence_edge_weights(grid))
+
+
+def call(fn, fields, consts, grid, dt2: float, stream=None):
+    """Call the C entry ``fn`` (``pace_c_sw_tail_f32`` / ``_f64`` of a
+    library built from ``csrc/c_sw_tail.cu``) on ``fields``, the 14 tensors
+    of :data:`FIELDS`, and ``consts``, those of :data:`CONSTS` (see
+    :func:`constants`), wherever they lie; checks nothing
+    (:func:`c_sw_tail_cuda` checks first). Returns the nine results."""
+    delp = fields[2]
+    S, K, Y, X = delp.shape
     outs = tuple(
         torch.empty((S, K, Y + dy, X + dx), dtype=delp.dtype, device=delp.device)
         for dy, dx in OUT_STAGGER
     )
     table = tuple(grid.corner_table)
     pos, quad, own = _device_corner_arrays(table, S, str(delp.device))
-    order = [fields[n] for n in FIELDS] + [consts[n] for n in CONSTS] + list(outs)
+    order = list(fields) + list(consts) + list(outs)
     ptrs = (ctypes.c_void_p * len(order))(*(t.data_ptr() for t in order))
-    rc = _fn(delp.dtype)(
-        ptrs, float(dt2), pos.data_ptr(), quad.data_ptr(), own.data_ptr(), len(table),
-        S, K, Y, X, _build.stream_handle(delp.device),
-    )
+    rc = fn(ptrs, float(dt2), pos.data_ptr(), quad.data_ptr(), own.data_ptr(), len(table),
+            S, K, Y, X, stream)
     _build.check(rc, "c_sw tail kernel")
-    LAUNCHES["c_sw_tail"] += 1
     return outs

@@ -1,7 +1,7 @@
-"""The sim1, multi-field transport, tracer-block transport and D-grid tail
-kernels' CUDA sources, built for the CPU by ``tools/cuda_cpu_emulation.py``
-and held against the plain versions, the single-field kernel and earlier
-designs.
+"""The sim1, multi-field transport, tracer-block transport, single-field
+transport, D-grid tail and C-grid tail kernels' CUDA sources, built for the
+CPU by ``tools/cuda_cpu_emulation.py`` and held against the plain versions,
+the single-field kernel and earlier designs.
 
 The card is not here; the emulation runs the kernels' own index arithmetic,
 tiling, shared-memory passes and barriers on CPU tensors (see the tool's
@@ -24,7 +24,14 @@ that is no multiple of the tile. D-grid tail: at C12, whose plane holds the
 four cube corners of every tile, for nord 0 to 3 with every switch on and
 with every switch off, equal to the plain version on the whole plane (on
 the CPU both divide by three at the cube corners), and equal to the
-design it replaced where the checkout's history holds it.
+design it replaced where the checkout's history holds it. Single-field
+transport: for every hord, both y-fold forms and both weightings, equal to
+the plain version on the consumed region and to the design it replaced
+(700a797) on the whole plane, also with a block of three tracers. C-grid
+tail: at C12, over a plane that holds cube corners and ten levels, equal to
+the plain version (without the corner dedup, which the kernels skip) away
+from the cube corners, and to its earlier tiling (700a797) on the whole
+plane.
 """
 
 import ctypes
@@ -40,7 +47,8 @@ import torch
 from pace_tpu_torch import constants
 from pace_tpu_torch.grid.generation import GridSpec, MetricTerms
 from pace_tpu_torch.grid.grid_data import GridData
-from pace_tpu_torch.ops import d_sw
+from pace_tpu_torch.ops import c_sw, d_sw
+from pace_tpu_torch.ops import c_sw_tail_kernel as ck
 from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
 from pace_tpu_torch.ops import fvtp2d_kernel as fk
 from pace_tpu_torch.ops import nonhydro
@@ -59,7 +67,7 @@ def libs(tmp_path_factory):
         pytest.skip("g++ is needed to build the CPU emulation")
     out = tmp_path_factory.mktemp("emu")
     libs = {}
-    for name in ("sim1", "fvtp2d", "d_sw_tail"):
+    for name in ("sim1", "fvtp2d", "d_sw_tail", "c_sw_tail"):
         path = cuda_cpu_emulation.build(ROOT / "pace_tpu_torch" / "csrc" / f"{name}.cu",
                                         out / f"lib{name}.so")
         libs[name] = ctypes.CDLL(str(path))
@@ -69,11 +77,30 @@ def libs(tmp_path_factory):
     for f in ("pace_fvtp2d_multi_f32", "pace_fvtp2d_multi_f64"):
         fn = getattr(libs["fvtp2d"], f)
         fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 7 + [I] * 4 + [P_], I
+    _fvtp2d_argtypes(libs["fvtp2d"])
+    return libs
+
+
+def _fvtp2d_argtypes(lib):
     for f in ("pace_fvtp2d_f32", "pace_fvtp2d_f64", "pace_fvtp2d_tracer_f32",
               "pace_fvtp2d_tracer_f64"):
-        fn = getattr(libs["fvtp2d"], f)
-        fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 9 + [I] * 6 + [P_], I
-    return libs
+        fn = getattr(lib, f, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 9 + [I] * 6 + [P_], I
+
+
+def _earlier_source(tmp_path_factory, rev, name):
+    """``csrc/<name>.cu`` of revision ``rev`` built for the CPU, where the
+    checkout's history holds it (skips otherwise)."""
+    git = shutil.which("git")
+    res = (subprocess.run([git, "-C", str(ROOT), "show", f"{rev}:pace_tpu_torch/csrc/{name}.cu"],
+                          capture_output=True, text=True) if git else None)
+    if res is None or res.returncode != 0:
+        pytest.skip(f"the checkout's history does not hold {name}.cu of {rev}")
+    out = tmp_path_factory.mktemp(f"emu_{name}_{rev}")
+    src = out / f"{name}.cu"
+    src.write_text(res.stdout)
+    return ctypes.CDLL(str(cuda_cpu_emulation.build(src, out / f"lib{name}.so")))
 
 
 def _suffix(dtype):
@@ -337,16 +364,7 @@ def test_tail_kernel_source_equals_the_plain_version(libs, tail_setup, case, dty
 def earlier_tail(libs, tmp_path_factory):
     """The D-grid tail source before its redesign, built for the CPU, where
     the checkout's history holds it."""
-    git = shutil.which("git")
-    res = (subprocess.run([git, "-C", str(ROOT), "show",
-                           "3c5accc:pace_tpu_torch/csrc/d_sw_tail.cu"],
-                          capture_output=True, text=True) if git else None)
-    if res is None or res.returncode != 0:
-        pytest.skip("the checkout's history does not hold the earlier D-grid tail")
-    out = tmp_path_factory.mktemp("emu_earlier")
-    src = out / "d_sw_tail.cu"
-    src.write_text(res.stdout)
-    return ctypes.CDLL(str(cuda_cpu_emulation.build(src, out / "libd_sw_tail.so")))
+    return _earlier_source(tmp_path_factory, "3c5accc", "d_sw_tail")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -363,9 +381,138 @@ def test_tail_kernel_source_equals_the_earlier_design(libs, earlier_tail, tail_s
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+# ------------------------------------------------ single-field transport
+
+#: (hord, corner pack, mass-flux weights, tracers): every hord in both y-fold
+#: forms and both weightings, and two blocks of three tracers
+SINGLE_CASES = ([(hord, patch, mf, 1) for hord in (1, 5, 6, 7, 8) for patch in (True, False)
+                 for mf in (True, False)] + [(8, True, True, 3), (6, False, False, 3)])
+
+
+@pytest.fixture(scope="module")
+def earlier_fvtp2d(libs, tmp_path_factory):
+    """The single-field transport's source before its redesign (700a797)."""
+    lib = _earlier_source(tmp_path_factory, "700a797", "fvtp2d")
+    _fvtp2d_argtypes(lib)
+    return lib
+
+
+def _single_block(lib, qx, qy, ops, mf, hord):
+    """``pace_fvtp2d`` on a block ``(S, NQ, K, Y, X)``, area-flux weights
+    unless ``mf`` (a pair of mass fluxes) is given."""
+    S, NQ, K, Y, X = qx.shape
+    patch = isinstance(qy, CornerPatch)
+    qy_t = qy.data if patch else qy
+    fx = torch.full((S, NQ, K, Y, X + 1), 7.0, dtype=qx.dtype)
+    fy = torch.full((S, NQ, K, Y + 1, X), 7.0, dtype=qx.dtype)
+    rc = getattr(lib, f"pace_fvtp2d_{_suffix(qx.dtype)}")(
+        qx.data_ptr(), qy_t.data_ptr(), int(patch), qy_t.shape[-1] // 2 if patch else 0,
+        *[t.data_ptr() for t in ops], *(t.data_ptr() if mf else None for t in mf or (0, 0)),
+        fx.data_ptr(), fy.data_ptr(), S, NQ, K, Y, X, hord, None)
+    assert rc == 0
+    return fx, fy
+
+
+def _single_inputs(K, dtype, hord, patch, nq):
+    S, Y, X = 1, 19, 45  # 1 x 2 tiles of 20 x 40, both ragged
+    ops, mfx, mfy = _operands(S, K, Y, X, dtype, seed=hord)
+    qs = [_field(S, K, Y, X, dtype, 10 * t + hord, patch) for t in range(nq)]
+    qx = torch.stack([q[0] for q in qs], dim=1).contiguous()
+    qy_t = torch.stack([q[1].data if patch else q[1] for q in qs], dim=1).contiguous()
+    return qx, (CornerPatch(qy_t) if patch else qy_t), ops, (mfx, mfy)
+
+
+SINGLE_IDS = [f"hord{h}-{'pack' if p else 'full'}-{'mf' if m else 'area'}-nq{n}"
+              for h, p, m, n in SINGLE_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("hord,patch,mf,nq", SINGLE_CASES, ids=SINGLE_IDS)
+def test_single_field_kernel_source_equals_the_plain_version(libs, hord, patch, mf, nq, dtype):
+    qx, qy, ops, mfs = _single_inputs(3, dtype, hord, patch, nq)
+    fx, fy = _single_block(libs["fvtp2d"], qx, qy, ops, mfs if mf else None, hord)
+    for t in range(nq):
+        qy_1 = CornerPatch(qy.data[:, t]) if patch else qy[:, t]
+        px, py = fk.fvtp2d_plain(qx[:, t], qy_1, *ops, hord, mfx=mfs[0] if mf else None,
+                                 mfy=mfs[1] if mf else None)
+        for a, b in ((fx[:, t], px), (fy[:, t], py)):
+            assert torch.equal(a[..., 3:-3, 3:-3], b[..., 3:-3, 3:-3]), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("hord,patch,mf,nq", SINGLE_CASES, ids=SINGLE_IDS)
+def test_single_field_kernel_source_equals_the_earlier_design(libs, earlier_fvtp2d, hord, patch,
+                                                              mf, nq, dtype):
+    """Against the design it replaced (a block per tile, level and tracer)
+    on the whole plane, two levels."""
+    qx, qy, ops, mfs = _single_inputs(2, dtype, hord, patch, nq)
+    got = _single_block(libs["fvtp2d"], qx, qy, ops, mfs if mf else None, hord)
+    ref = _single_block(earlier_fvtp2d, qx, qy, ops, mfs if mf else None, hord)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), int((a != b).sum())
+
+
+# ------------------------------------------------------------- C-grid tail
+
+
+@pytest.fixture(scope="module")
+def c_tail_setup():
+    """A C12 grid in both dtypes and random fields of the tail's 14
+    operands, K = 10."""
+    mt = MetricTerms.generate(GridSpec(n_tile=12, npz=3, layout=(1, 1)))
+    grids = {dt: GridData.from_metric_terms(mt, device="cpu", dtype=dt)
+             for dt in (torch.float32, torch.float64)}
+    S, Y, X = grids[torch.float64].area.shape
+    rng = np.random.default_rng(5)
+    scale = dict(delp=100.0, pt=300.0)
+    fields = []
+    for n in ck.FIELDS:
+        dy, dx = ck._FIELD_STAGGER[n]
+        a = rng.standard_normal((S, 10, Y + dy, X + dx))
+        fields.append(scale[n] * (1.0 + 0.1 * a) if n in scale else a)
+    return grids, fields
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_c_sw_tail_kernel_source_equals_the_plain_version(libs, c_tail_setup, dtype):
+    grids, arrays = c_tail_setup
+    grid = grids[dtype]
+    fields = [torch.from_numpy(a).to(dtype) for a in arrays]
+    name, dt2 = f"pace_c_sw_tail_{_suffix(dtype)}", 200.0 / 112
+    got = ck.call(ck.set_argtypes(getattr(libs["c_sw_tail"], name)), fields, ck.constants(grid),
+                  grid, dt2)
+    plain = c_sw.c_sw_tail_plain(*fields, grid, dt2, dedup=False)
+    assert grid.corner_table  # the plane holds cube corners
+    for a, p in zip(got, plain):
+        far = torch.ones(a.shape[-2:], dtype=torch.bool)
+        for _kind, jj, ii, _own in grid.corner_table:
+            far[max(jj - 1, 0):jj + 2, max(ii - 1, 0):ii + 2] = False
+        assert torch.equal(a[..., far], p[..., far]), int((a[..., far] != p[..., far]).sum())
+
+
+@pytest.fixture(scope="module")
+def earlier_c_tail(libs, tmp_path_factory):
+    """The C-grid tail's source before its retiling (700a797)."""
+    return _earlier_source(tmp_path_factory, "700a797", "c_sw_tail")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_c_sw_tail_kernel_source_equals_the_earlier_design(libs, earlier_c_tail, c_tail_setup,
+                                                           dtype):
+    grids, arrays = c_tail_setup
+    grid = grids[dtype]
+    fields = [torch.from_numpy(a).to(dtype) for a in arrays]
+    name, dt2 = f"pace_c_sw_tail_{_suffix(dtype)}", 200.0 / 112
+    got, ref = (ck.call(ck.set_argtypes(getattr(lib, name)), fields, ck.constants(grid), grid, dt2)
+                for lib in (libs["c_sw_tail"], earlier_c_tail))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), int((a != b).sum())
+
+
 # ------------------------------------------ the tuning candidates' tables
 
-@pytest.mark.parametrize("name", ["sim1", "fvtp2d", "tracer", "d_sw_tail"])
+@pytest.mark.parametrize("name", ["sim1", "fvtp2d", "tracer", "d_sw_tail", "single",
+                                  "c_sw_tail"])
 def test_variant_candidates_apply_to_the_current_sources(name):
     """Every candidate and diagnostic of tools/torch_kernel_variants.py
     finds its text in the current source and changes it (the tool raises

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """Time an earlier revision's remap, nh_p_grad, sim1, multi-field transport,
-tracer-block transport and D-grid tail kernels against the current ones on
-one NVIDIA card, in turns, at the dycore step's shapes.
+tracer-block transport, single-field transport, D-grid tail and C-grid tail
+kernels against the current ones on one NVIDIA card, in turns, at the dycore
+step's shapes.
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
     mkdir -p build/prev
-    for f in remap pgrad sim1 fvtp2d d_sw_tail; do
+    for f in remap pgrad sim1 fvtp2d d_sw_tail c_sw_tail; do
         git show <rev>:pace_tpu_torch/csrc/$f.cu > build/prev/$f.cu
     done
-    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels tracer,d_sw_tail]
+    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels single,c_sw_tail]
 
-``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, tracer, d_sw_tail,
-halo`` (default all); the earlier directory needs the sources of the kernels
-picked (``fvtp2d.cu`` for ``fvtp2d`` and ``tracer``). The earlier sources
-must export the C functions the current wrappers call (``pace_remap_f32``
-..., ``pace_pgrad_f32`` ..., ``pace_sim1_f32`` ..., ``pace_fvtp2d_multi_f32``
-..., ``pace_d_sw_tail_f32`` ...) with the current arguments; the earlier
-tracer block is the earlier ``pace_fvtp2d_f32`` / ``_f64`` with NQ tracers
-(one block per tracer), the current one ``pace_fvtp2d_tracer_f32`` /
+``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, tracer, single,
+d_sw_tail, c_sw_tail, halo`` (default all); the earlier directory needs the
+sources of the kernels picked (``fvtp2d.cu`` for ``fvtp2d``, ``tracer`` and
+``single``). The earlier sources must export the C functions the current
+wrappers call (``pace_remap_f32`` ..., ``pace_pgrad_f32`` ...,
+``pace_sim1_f32`` ..., ``pace_fvtp2d_f32`` ..., ``pace_fvtp2d_multi_f32``
+..., ``pace_d_sw_tail_f32`` ..., ``pace_c_sw_tail_f32`` ...) with the
+current arguments; the earlier tracer block is the earlier
+``pace_fvtp2d_f32`` / ``_f64`` with NQ tracers (the design before the tracer
+kernel: one block per tracer), the current one ``pace_fvtp2d_tracer_f32`` /
 ``_f64``. Both revisions
 are built with ``_build.NVCC_FLAGS`` and their ``-Xptxas -v`` lines printed
 (the earlier ones into ``build/kernels/prev``, which ``.gitignore`` lists).
@@ -34,9 +37,12 @@ as ``riem_solver_c`` calls it; ``riem_solver3`` calls it at the same
 shapes), the multi-field transport d_sw's pt / vorticity / w of one acoustic
 substep; both also in float64 on the same inputs (means of 5 launches). The
 tracer block takes ``chip_smoke.py``'s nine tracers (hord 8, the corner
-pack, mass-flux weights; means of 5 launches in float32, 2 in float64),
-beside the single-field launch (hord 6, ``delp``) whose kernel both
-revisions share. The D-grid tail takes ``chip_smoke.py``'s two tail cases
+pack, mass-flux weights; means of 5 launches in float32, 2 in float64). The
+single-field transport takes its two calls of one acoustic substep: d_sw's
+delp mass fluxes (hord 6, the corner pack, K = npz) and updatedz_d's
+interface heights (hord 5, a full qy, K = npz + 1), both weighted by the area
+fluxes. The C-grid tail takes the operands of one C-grid half step from the
+baroclinic-wave state, as ``chip_smoke.py`` builds them. The D-grid tail takes ``chip_smoke.py``'s two tail cases
 on one acoustic substep's fields (the benchmark's nord 3 with every switch
 on; nord 1 without band, heat or vorticity damping), in float32 and on the
 same inputs in float64 (with a float64 copy of the grid).
@@ -73,9 +79,10 @@ log = chip_smoke.log
 time_ms = chip_smoke.time_ms
 nbytes = chip_smoke.nbytes
 
-KERNELS = ("remap", "pgrad", "sim1", "fvtp2d", "tracer", "d_sw_tail")
-#: the kernel library each pick builds (the tracer kernel lives in fvtp2d.cu)
-LIBRARY = {"tracer": "fvtp2d"}
+KERNELS = ("remap", "pgrad", "sim1", "fvtp2d", "tracer", "single", "d_sw_tail", "c_sw_tail")
+#: the kernel library each pick builds (the tracer and single-field kernels
+#: live in fvtp2d.cu)
+LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d"}
 
 
 def build_prev(prev_dir: str, names):
@@ -160,10 +167,11 @@ def sim1_operands(n, npz, dev):
     return s_args, ncase.dt2, ncase.grid.ptop, ncase.config.p_fac
 
 
-def transport_operands(n, npz, dev):
+def transport_operands(n, npz, dev, singles=False):
     """d_sw's pt / vorticity / w of one acoustic substep and their shared
     operands ``(crx, cry, xfx, yfx, area, mfx, mfy)``, as chip_smoke.py
-    builds them."""
+    builds them; with ``singles``, instead the arguments of the substep's two
+    single-field calls (``fvtp2d_cuda``): ``{"delp": ..., "heights": ...}``."""
     from pace_tpu_torch.demos import acoustic_substep as sdemo
     from pace_tpu_torch.ops import d_sw as d_sw_ops
     from pace_tpu_torch.ops.folds import CornerPatch
@@ -178,6 +186,13 @@ def transport_operands(n, npz, dev):
     cry, yfx, _vt = flux_prep_y(chalf.uc_y, chalf.vc_y, sgrid, dt)
     vort = d_sw_ops.absolute_vorticity_centers(chalf.u_y, chalf.v_x, sgrid)
     vort_x, vort_p = shalo.update_scalar_fold_patch(vort)
+    if singles:
+        from pace_tpu_torch.ops.nonhydro import _to_iface
+
+        return {"delp": (chalf.delp_x, chalf.delp_y, crx, cry, xfx, yfx, sgrid.area,
+                         scfg.hord_dp),
+                "heights": (chalf.zh_x, chalf.zh_y, *(_to_iface(t) for t in (crx, cry, xfx, yfx)),
+                            sgrid.area, 5)}
     fl = fvtp2d_best(chalf.delp_x, chalf.delp_y, crx, cry, xfx, yfx, sgrid.area, scfg.hord_dp)
     mfx, mfy = shalo.sync_vector_interfaces(fl.fx, fl.fy, kind="cgrid")
     trio = [(chalf.pt_x, chalf.pt_y, scfg.hord_tm, True),
@@ -254,15 +269,12 @@ def tracer_operands(n, npz, dev):
 def tracer_block(libs, n, npz, dev):
     """The tracer block of chip_smoke.py: the earlier one-block-per-tracer
     launch against the tracer kernel, in float32 (timed) and float64 (the
-    bits); and the single-field launch both revisions share."""
+    bits)."""
     from pace_tpu_torch.ops import fvtp2d_kernel as fk
     from pace_tpu_torch.ops.folds import CornerPatch
 
-    targs, single = tracer_operands(n, npz, dev)
-    ok = in_turns(f"fvtp2d single field {tuple(single[0].shape)} f32 hord 6 (the kernel both "
-                  f"revisions share)", libs["fvtp2d"], "fvtp2d",
-                  lambda: fk.fvtp2d_cuda(*single), 20,
-                  nbytes(single[0], single[1].data, *single[2:7]) + nbytes(*single[2:4]))
+    targs, _single = tracer_operands(n, npz, dev)
+    ok = True
     for dtype, reps in ((torch.float32, 5), (torch.float64, 2)):
         qx, qp = targs[0].to(dtype), targs[1].data.to(dtype)
         o = [t.to(dtype) for t in targs[2:9]]
@@ -273,6 +285,69 @@ def tracer_block(libs, n, npz, dev):
         ok &= in_turns(f"fvtp2d tracer block {tuple(qx.shape)} {str(dtype)[6:]} hord 8",
                        libs["fvtp2d"], "fvtp2d", calls, reps, moved)
         del qx, qp, o, args, calls
+        torch.cuda.empty_cache()
+    return ok
+
+
+def single_transport(libs, n, npz, dev):
+    """The substep's two single-field calls, earlier against current, in
+    float32 (timed, 20 launches) and float64 (the bits, 5)."""
+    from pace_tpu_torch.ops import fvtp2d_kernel as fk
+    from pace_tpu_torch.ops.folds import CornerPatch
+
+    ok = True
+    for label, args in transport_operands(n, npz, dev, singles=True).items():
+        patch = isinstance(args[1], CornerPatch)
+        for dtype, reps in ((torch.float32, 20), (torch.float64, 5)):
+            qy = args[1].data.to(dtype) if patch else args[1].to(dtype)
+            a = (args[0].to(dtype), CornerPatch(qy) if patch else qy,
+                 *(t.to(dtype) for t in args[2:7]), args[7])
+            moved = nbytes(a[0], qy, *a[2:7]) + nbytes(a[2], a[3])  # + fx, fy
+            ok &= in_turns(f"fvtp2d single field, {label} {tuple(a[0].shape)} "
+                           f"{str(dtype)[6:]} hord {args[7]} "
+                           f"({'the corner pack' if patch else 'a full qy'})",
+                           libs["fvtp2d"], "fvtp2d", lambda: fk.fvtp2d_cuda(*a), reps, moved)
+            del a, qy
+            torch.cuda.empty_cache()
+    return ok
+
+
+def c_sw_tail_operands(n, npz, dev):
+    """The C-grid tail's arguments after one d2a2c and its exchanges from the
+    baroclinic-wave state, as chip_smoke.py builds them: those of
+    ``c_sw_tail_cuda``."""
+    from pace_tpu_torch.demos import cgrid_half_step as cdemo
+    from pace_tpu_torch.ops import d2a2c_kernel as d2k
+
+    ccase = cdemo.build_case(n, npz, device=dev, dtype=torch.float32)
+    grid, halo, st = ccase.grid, ccase.halo, ccase.state
+    u_y, v_x = halo.update_vector_fold_pair(st.u, st.v, kind="dgrid")
+    (delp_x, _), (pt_x, _) = halo.update_scalars_fold_patches([st.delp, st.pt])
+    ua, va, uc, vc, _ut, _vt = d2k.d2a2c_cuda(u_y, v_x, grid)
+    uc, vc = halo.sync_vector_interfaces(uc, vc, kind="cgrid")
+    uc_x, vc_x = halo.update_vector(uc, vc, kind="cgrid", fold="x")
+    uc_y, vc_y = halo.update_vector(uc, vc, kind="cgrid", fold="y")
+    ua_y, va_x = halo.update_vector_fold_pair(ua, va, kind="agrid")
+    return (u_y, v_x, delp_x, pt_x, uc, vc, uc_x, vc_x, uc_y, vc_y, ua, va, va_x, ua_y, grid,
+            ccase.dt2)
+
+
+def c_sw_tail(libs, n, npz, dev):
+    """The C-grid tail, earlier against current, in float32 (timed, 20
+    launches) and float64 (the bits, 5, with a float64 copy of the grid)."""
+    from pace_tpu_torch.ops import c_sw_tail_kernel as ck
+
+    args = c_sw_tail_operands(n, npz, dev)
+    grid = args[14]
+    ok = True
+    for dtype, reps in ((torch.float32, 20), (torch.float64, 5)):
+        g = grid if dtype == torch.float32 else grid_as(grid, dtype)
+        a = tuple(t.to(dtype) for t in args[:14]) + (g, args[15])
+        outs = ck.c_sw_tail_cuda(*a)
+        ok &= in_turns(f"c_sw tail {tuple(a[2].shape)} {str(dtype)[6:]}", libs["c_sw_tail"],
+                       "c_sw_tail", lambda: ck.c_sw_tail_cuda(*a), reps,
+                       nbytes(*a[:14], *ck.constants(g), *outs))
+        del a, outs
         torch.cuda.empty_cache()
     return ok
 
@@ -456,10 +531,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--prev", required=True,
                     help="directory of the earlier sources (remap.cu, pgrad.cu, sim1.cu, "
-                         "fvtp2d.cu, d_sw_tail.cu)")
+                         "fvtp2d.cu, d_sw_tail.cu, c_sw_tail.cu)")
     ap.add_argument("--kernels", default=",".join(KERNELS + ("halo",)),
-                    help="comma-separated: remap, pgrad, sim1, fvtp2d, tracer, d_sw_tail, "
-                         "halo (default all)")
+                    help="comma-separated: remap, pgrad, sim1, fvtp2d, tracer, single, "
+                         "d_sw_tail, c_sw_tail, halo (default all)")
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--npz", type=int, default=79)
     args = ap.parse_args()
@@ -480,8 +555,14 @@ def main() -> int:
     if "tracer" in picked:
         ok &= tracer_block(libs, args.n, args.npz, dev)
         torch.cuda.empty_cache()
+    if "single" in picked:
+        ok &= single_transport(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
     if "d_sw_tail" in picked:
         ok &= d_sw_tail(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
+    if "c_sw_tail" in picked:
+        ok &= c_sw_tail(libs, args.n, args.npz, dev)
         torch.cuda.empty_cache()
     libs = {k: v for k, v in libs.items() if k in picked}
     ok &= sim1_and_multi(libs, args.n, args.npz, dev)

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Time the tuning candidates of the sim1, multi-field transport,
-tracer-block transport and D-grid tail kernels on one NVIDIA card, at the
-dycore step's shapes.
+tracer-block transport, single-field transport, D-grid tail and C-grid tail
+kernels on one NVIDIA card, at the dycore step's shapes.
 
 Each candidate is the current source (``pace_tpu_torch/csrc/sim1.cu``,
-``fvtp2d.cu`` or ``d_sw_tail.cu``) with one or more of its tuning constants
-changed (``CANDIDATES`` below: tile width and blocks an SM for sim1, segment
-lengths, blocks an SM and the tracer kernel's tile for the transports, and
-tile shape, levels a block and blocks an SM for the tail), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
+``fvtp2d.cu``, ``d_sw_tail.cu`` or ``c_sw_tail.cu``) with one or more of its
+tuning constants changed (``CANDIDATES`` below: tile width and blocks an SM
+for sim1; segment lengths, blocks an SM, the tile and, for the single-field
+kernel, levels a block, level buffers or the tracer kernel in its place for
+the transports; tile shape, levels a block, threads and blocks an SM for the
+tails), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
 (gitignored), and run through the current wrapper on the inputs of
 ``tools/torch_kernel_ab.py`` (C192 npz=79 f32: sim1 on one nonhydrostatic
 C-grid half step's operands, the multi-field transport on d_sw's pt /
-vorticity / w, the tracer block on chip_smoke.py's nine tracers, the tail on
-the benchmark's nord 3 case). Two rounds of CUDA-event means of 20 launches
-(the tracer block 5), the current build first in each, and whether each
-candidate gives the current build's bits. Run from the repository root on a
-machine with a card and ``nvcc``::
+vorticity / w, the tracer block on chip_smoke.py's nine tracers, the
+single-field transport on the substep's delp call (corner pack, K = 79) and
+heights call (full qy, K = 80), the D-grid tail on the benchmark's nord 3
+case, the C-grid tail on one C-grid half step's operands). Two rounds of
+CUDA-event means of 20 launches (the tracer block 5), the current build first
+in each, and whether each candidate gives the current build's bits. Run from
+the repository root on a machine with a card and ``nvcc``::
 
-    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,d_sw_tail]
+    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,single,d_sw_tail,c_sw_tail]
 
 Prints ``[build]`` lines (registers and spills), ``[variant]`` lines and the
 card's name and power limit. ``DIAGNOSTICS`` adds builds that leave a part of
@@ -60,6 +64,13 @@ _TAIL_TX = "constexpr int TX = 40;      // slot columns of a tile"
 _TAIL_LEVELS = "constexpr int kLevels = 8;  // levels a block walks"
 _TAIL_BLOCKS = "return sizeof(T) == 8 ? 2 : 4;"
 _TAIL_THREADS = "constexpr int kThreads = 256;  // threads a block"
+_SINGLE_TILE = "using SingleTile = Tile<20, 40, 47>;"
+_SINGLE_BLOCKS = "constexpr int single_blocks() {\n  return sizeof(T) == 8 ? 2 : 4;"
+_SINGLE_SEG_IN = "constexpr int kSegInSingle = 3;"
+_SINGLE_SEG_OUT = "constexpr int kSegOutSingle = 4;"
+_CSW_TILE = "constexpr int TY = 16;\nconstexpr int TX = 40;"
+_CSW_THREADS = "constexpr int kThreads = 384;\n"
+_CSW_BOUNDS = "__launch_bounds__(kThreads) c_sw_tail_kernel"
 
 
 def _sim1(blocks, smem, threads=256):
@@ -84,6 +95,24 @@ def _tracer_tile(ty, tx, ld, blocks):
             (_TRACER_BLOCKS, _TRACER_BLOCKS.replace(": 4;", f": {blocks};"))]
 
 
+def _single(ty=20, tx=40, ld=47, blocks=4):
+    return [(_SINGLE_TILE, f"using SingleTile = Tile<{ty}, {tx}, {ld}>;"),
+            (_SINGLE_BLOCKS, _SINGLE_BLOCKS.replace(": 4;", f": {blocks};"))]
+
+
+def _single_segments(seg_in, seg_out):
+    return [(_SINGLE_SEG_IN, f"constexpr int kSegInSingle = {seg_in};"),
+            (_SINGLE_SEG_OUT, f"constexpr int kSegOutSingle = {seg_out};")]
+
+
+def _c_sw_tail(ty=16, tx=40, threads=384, blocks=None):
+    subs = [(_CSW_TILE, f"constexpr int TY = {ty};\nconstexpr int TX = {tx};"),
+            (_CSW_THREADS, f"constexpr int kThreads = {threads};\n")]
+    if blocks:
+        subs.append((_CSW_BOUNDS, f"__launch_bounds__(kThreads, {blocks}) c_sw_tail_kernel"))
+    return subs
+
+
 def _tail(ty, tx, levels, blocks, threads=256):
     return [(_TAIL_TY, f"constexpr int TY = {ty};"), (_TAIL_TX, f"constexpr int TX = {tx};"),
             (_TAIL_LEVELS, f"constexpr int kLevels = {levels};"),
@@ -96,7 +125,10 @@ _FIELD_START = ("  const int X1 = X + 1;\n  const int tid = threadIdx.x;\n"
                 "  static_assert(TX % SO == 0")
 _STAGE_QX = "    cp_async(s_qx + m, src);"
 _STAGE_QY = "    cp_async(s_qy + m, src);"
-_STAGE_OPS = "      cp_async(s_crx + m, crx_p + gj * X1 + gi);"
+_STAGE_OPS = ("    cp_async(s_ops + m, crx_p + gj * X1 + gi);\n"
+              "    cp_async(s_ops + 2 * NSM + m, xfx_p + gj * X1 + gi);\n"
+              "    cp_async(s_ops + NSM + m, cry_p + gj * X + gi);\n"
+              "    cp_async(s_ops + 3 * NSM + m, yfx_p + gj * X + gi);\n")
 _TAIL_LEVEL = ("    if (k + 1 < k1) stage_level(k + 1, OFF_LEV + ((k + 1 - k0) & 1) * "
                "kLevelVals);\n")
 _TAIL_COPY = ('  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n" ::"r"(d), "l"(src),\n'
@@ -108,13 +140,14 @@ _FVTP2D_DIAGNOSTICS = {
             "fx_p[0] = s_qy[1];\n  __syncthreads();\n  return;\n"))],
     "diagnostic: passes alone": [
         (_STAGE_QX, "    (void)src;"), (_STAGE_QY, "    (void)src;"),
-        (_STAGE_OPS, "      (void)gj;")],
+        (_STAGE_OPS, "    (void)gj;\n")],
 }
 
 #: diagnostics that time a part of a kernel (their results are wrong): sim1
 #: without its serial recurrence; the transport with its loads and barriers
 #: alone (each field returns at once), and with its passes alone (no field
-#: and only one shared operand loaded: the passes run on stale shared memory)
+#: and of the operands only the areas loaded: the passes run on stale shared
+#: memory)
 DIAGNOSTICS = {
     "sim1": {
         "diagnostic: without the recurrence": [
@@ -122,6 +155,7 @@ DIAGNOSTICS = {
     },
     "fvtp2d": _FVTP2D_DIAGNOSTICS,
     "tracer": _FVTP2D_DIAGNOSTICS,
+    "single": _FVTP2D_DIAGNOSTICS,
     # the tail: every level's loads and barrier without its passes; the
     # passes without any copy (on stale shared memory)
     "d_sw_tail": {
@@ -129,6 +163,9 @@ DIAGNOSTICS = {
             (_TAIL_LEVEL, _TAIL_LEVEL + "    if (k >= 0) continue;\n")],
         "diagnostic: passes alone": [(_TAIL_COPY, "  (void)d;\n  (void)src;")],
     },
+    # the C-grid tail reads its operands straight from device memory in its
+    # passes: nothing to separate
+    "c_sw_tail": {},
 }
 
 #: name -> (source name, substitutions); the current source is "current":
@@ -176,10 +213,35 @@ CANDIDATES = {
         "6 x 40 slots, 5 blocks an SM": _tail(6, 40, 8, 5),
         "10 x 40 slots, 3 blocks an SM": _tail(10, 40, 8, 3),
     },
+    "single": {
+        "(a) the tracer kernel at NQ = 1": [
+            ("return launch_single_hord<T, ", "return launch_tracer_hord<T, ")],
+        "5 blocks an SM": _single(blocks=5),
+        "3 blocks an SM": _single(blocks=3),
+        "16 x 40 tiles, 5 blocks an SM": _single(16, 40, 47, blocks=5),
+        "24 x 40 tiles": _single(24, 40, 47),
+        "16 x 32 tiles (the multi-field kernel's), 5 blocks an SM": _single(16, 32, 41, blocks=5),
+        "segments 4 / 4": _single_segments(4, 4),
+        "segments 3 / 2": _single_segments(3, 2),
+        "segments 2 / 4": _single_segments(2, 4),
+    },
+    "c_sw_tail": {
+        "16 x 32 slots, 256 threads (the earlier design)": _c_sw_tail(16, 32, threads=256),
+        "16 x 40 slots, 256 threads": _c_sw_tail(threads=256),
+        "16 x 40 slots, 512 threads": _c_sw_tail(threads=512),
+        "4 blocks an SM": _c_sw_tail(blocks=4),
+        "8 x 40 slots, 256 threads": _c_sw_tail(8, threads=256),
+        "8 x 40 slots, 320 threads": _c_sw_tail(8, threads=320),
+        "12 x 40 slots": _c_sw_tail(12),
+        "14 x 40 slots, 352 threads": _c_sw_tail(14, threads=352),
+        "20 x 40 slots, 480 threads": _c_sw_tail(20, threads=480),
+        "16 x 36 slots": _c_sw_tail(16, 36),
+        "8 x 32 slots, 256 threads": _c_sw_tail(8, 32, threads=256),
+    },
 }
 
 #: the kernel library each pick builds
-LIBRARY = {"tracer": "fvtp2d"}
+LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d"}
 
 
 def candidate_sources(name):
@@ -283,6 +345,22 @@ def main() -> int:
         time_candidates("tracer", lambda: fk.fvtp2d_tracer_cuda(*targs),
                         build_candidates("tracer"), reps=5)
         del targs, _single
+        torch.cuda.empty_cache()
+    if "single" in picked:
+        from pace_tpu_torch.ops import fvtp2d_kernel as fk
+
+        singles = ab.transport_operands(args.n, args.npz, dev, singles=True)
+        time_candidates("single", lambda: [fk.fvtp2d_cuda(*a) for a in singles.values()],
+                        build_candidates("single"))
+        del singles
+        torch.cuda.empty_cache()
+    if "c_sw_tail" in picked:
+        from pace_tpu_torch.ops import c_sw_tail_kernel as ck
+
+        c_args = ab.c_sw_tail_operands(args.n, args.npz, dev)
+        time_candidates("c_sw_tail", lambda: ck.c_sw_tail_cuda(*c_args),
+                        build_candidates("c_sw_tail"))
+        del c_args
         torch.cuda.empty_cache()
     if "d_sw_tail" in picked:
         from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
