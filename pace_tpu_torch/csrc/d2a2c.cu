@@ -26,30 +26,57 @@
 // for a C192 npz=79 f32 call, ~0.03 ms of arithmetic at 67 TFLOP/s. The 40
 // grid constants a cell needs (34 planes per shard) do not depend on the
 // level and would outweigh the fields if they were fetched per level.
-// Design: one block per (16x32 tile, chunk of levels, shard). A thread owns
-// one point of each of the three stages (Cartesian vector on tile+2, uc/vc
-// on tile+1, ut/vt on the tile), loads that point's constants into
-// registers once, and walks the chunk's levels; per level the block stages
-// u and v with their margin in shared memory and keeps the Cartesian vector
-// and the C winds there, so device memory sees one read of u, v (plus the
-// margin overlap) and one write of the six outputs. The next level's u, v
-// are fetched into registers while the current level is computed: with one
-// block per SM nothing else hides the load latency.
+// Design: one block per (12x40 tile, chunk of 28 levels, shard), one
+// block an SM. A thread owns one point of each of the three stages
+// (Cartesian vector on tile+2, uc/vc on tile+1, ut/vt on the tile), loads
+// that point's constants into registers once, and walks the chunk's levels
+// two at a time: the block stages u and v of both levels with their margin
+// in shared memory and keeps the Cartesian vectors and the C winds there,
+// so device memory sees one read of u, v (plus the margin overlap) and one
+// write of the six outputs. The next two levels' u, v are fetched into
+// registers while the current two are computed.
+// What holds it: its three stages, not its loads. With 16 x 32 tiles and
+// one level at a time (the earlier design, 0.53 ms at C192 npz=79 f32 on an
+// H100) the stages alone, loads left out, took 0.45 ms: each level passed
+// three barriers with 23 warps an SM and one point's dependent chain a
+// thread.
+// Two levels between barriers give each thread two independent chains and
+// halve the barriers a level; 12 x 40 tiles cover the 198 x 198 plane as
+// 204 x 200 (16 x 32 tiles, as 208 x 224, left 16% of the last stage's
+// threads idle). float64 keeps one level a step (its two would not pay). Designs
+// with two blocks an SM (smaller tiles, the band's constants read through
+// L1, a ring of levels in flight by cp.async) and a conflict-free common
+// row pitch were slower.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TY = 16;
-constexpr int TX = 32;
+constexpr int TY = 12;
+constexpr int TX = 40;
 constexpr int VY = TY + 4;  // Cartesian vector: rows j0-2 .. j0+TY+1
 constexpr int VX = TX + 4;
 constexpr int UY = TY + 7;  // staged u: rows j0-3 .. j0+TY+3, cols as VX
 constexpr int WX = TX + 7;  // staged v: cols i0-3 .. i0+TX+3, rows as VY
 constexpr int CY = TY + 1;  // uc: rows j0-1 .. j0+TY-1, cols i0 .. i0+TX
 constexpr int CX = TX + 1;  // vc: rows j0 .. j0+TY, cols i0-1 .. i0+TX-1
-constexpr int kThreads = 736;  // >= VY * VX
-constexpr int kLevels = 16;    // levels walked by one block
+constexpr int kThreads = 704;  // >= VY * VX
+constexpr int kLevels = 28;    // levels walked by one block
+// levels a block computes between two barriers (their stages interleave)
+template <typename T>
+__host__ __device__ constexpr int step_levels() {
+  return sizeof(T) == 8 ? 1 : 2;
+}
+// shared-memory words a level takes: staged u, v, the Cartesian vector and
+// the C winds
+constexpr int kU = UY * VX;
+constexpr int kV = VY * WX;
+constexpr int kQ = 3 * VY * VX;
+constexpr int kC = CY * CX;
+template <typename T>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * step_levels<T>() * (kU + kV + kQ + 2 * kC);
+}
 static_assert(UY * VX <= 2 * kThreads && VY * WX <= 2 * kThreads,
               "a thread stages at most two points of u and of v");
 
@@ -71,11 +98,13 @@ __global__ void __launch_bounds__(kThreads, 1) d2a2c_kernel(
     T* __restrict__ ua, T* __restrict__ va, T* __restrict__ uc,
     T* __restrict__ vc, T* __restrict__ ut, T* __restrict__ vt, int K, int Y,
     int X) {
-  __shared__ T s_u[UY * VX];
-  __shared__ T s_v[VY * WX];
-  __shared__ T s_q[3 * VY * VX];  // Cartesian wind vector
-  __shared__ T s_uc[CY * CX];
-  __shared__ T s_vc[CY * CX];
+  constexpr int L = step_levels<T>();
+  extern __shared__ unsigned char smem_raw[];
+  T* s_u = reinterpret_cast<T*>(smem_raw);  // [L][kU]
+  T* s_v = s_u + L * kU;                    // [L][kV]
+  T* s_q = s_v + L * kV;                    // [L][kQ], Cartesian wind vector
+  T* s_uc = s_q + L * kQ;                   // [L][kC]
+  T* s_vc = s_uc + L * kC;                  // [L][kC]
 
   const T A1 = T(9.0 / 16.0);
   const T A2 = T(-1.0 / 16.0);
@@ -172,40 +201,47 @@ __global__ void __launch_bounds__(kThreads, 1) d2a2c_kernel(
                    ? clampi(j0 - 2 + av, 0, Y - 1) * X1 + wrapi(i0 - 3 + iv - av * WX, X1)
                    : -1;
   }
-  // the next level's u, v wait in registers while this level is computed
-  T pre_u[2], pre_v[2];
+  // the next step's u, v wait in registers while this step is computed
+  T pre_u[L][2], pre_v[L][2];
   auto prefetch = [&](int k) {
-    const long long lev = (long long)s * K + k;
-    const T* u_p = u + lev * Y1 * X;
-    const T* v_p = v + lev * Y * X1;
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      pre_u[n] = off_u[n] >= 0 ? u_p[off_u[n]] : T(0);
-      pre_v[n] = off_v[n] >= 0 ? v_p[off_v[n]] : T(0);
+    for (int l = 0; l < L; ++l) {
+      const long long lev = (long long)s * K + (k + l < k_end ? k + l : k);
+      const T* u_p = u + lev * Y1 * X;
+      const T* v_p = v + lev * Y * X1;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        pre_u[l][n] = off_u[n] >= 0 ? u_p[off_u[n]] : T(0);
+        pre_v[l][n] = off_v[n] >= 0 ? v_p[off_v[n]] : T(0);
+      }
     }
   };
   if (k_begin < k_end) prefetch(k_begin);
 
-  for (int k = k_begin; k < k_end; ++k) {
-    const long long lev = (long long)s * K + k;
+  for (int k = k_begin; k < k_end; k += L) {
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      if (off_u[n] >= 0) s_u[t + n * kThreads] = pre_u[n];
-      if (off_v[n] >= 0) s_v[t + n * kThreads] = pre_v[n];
-    }
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        if (off_u[n] >= 0) s_u[l * kU + t + n * kThreads] = pre_u[l][n];
+        if (off_v[n] >= 0) s_v[l * kV + t + n * kThreads] = pre_v[l][n];
+      }
     __syncthreads();
-    if (k + 1 < k_end) prefetch(k + 1);
+    if (k + L < k_end) prefetch(k + L);
 
     // stage 1: Cartesian wind at centers; ua, va on the tile
-    if (on1) {
-      const T u_jm1 = s_u[a1 * VX + b1];
-      const T u_j = s_u[(a1 + 1) * VX + b1];
-      const T u_jp1 = s_u[(a1 + 2) * VX + b1];
-      const T u_jp2 = s_u[(a1 + 3) * VX + b1];
-      const T v_im1 = s_v[a1 * WX + b1];
-      const T v_i = s_v[a1 * WX + b1 + 1];
-      const T v_ip1 = s_v[a1 * WX + b1 + 2];
-      const T v_ip2 = s_v[a1 * WX + b1 + 3];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+    const long long lev = (long long)s * K + k + l;
+    if (on1 && k + l < k_end) {
+      const T u_jm1 = s_u[l * kU + a1 * VX + b1];
+      const T u_j = s_u[l * kU + (a1 + 1) * VX + b1];
+      const T u_jp1 = s_u[l * kU + (a1 + 2) * VX + b1];
+      const T u_jp2 = s_u[l * kU + (a1 + 3) * VX + b1];
+      const T v_im1 = s_v[l * kV + a1 * WX + b1];
+      const T v_i = s_v[l * kV + a1 * WX + b1 + 1];
+      const T v_ip1 = s_v[l * kV + a1 * WX + b1 + 2];
+      const T v_ip2 = s_v[l * kV + a1 * WX + b1 + 3];
       const T utmp = A1 * (u_j + u_jp1) + A2 * (u_jm1 + u_jp2);
       const T vtmp = A1 * (v_i + v_ip1) + A2 * (v_im1 + v_ip2);
       const T ua4 = (utmp - vtmp * k_cosa_s) * k_rsin2;
@@ -226,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1) d2a2c_kernel(
         for (int c = 0; c < 3; ++c) q[c] = ua4 * k_ec1[c] + va4 * k_ec2[c];
       }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) s_q[c * VY * VX + t] = q[c];
+      for (int c = 0; c < 3; ++c) s_q[l * kQ + c * VY * VX + t] = q[c];
       if (write1) {
         const T u_cov = (q[0] * k_ec1[0] + q[1] * k_ec1[1]) + q[2] * k_ec1[2];
         const T v_cov = (q[0] * k_ec2[0] + q[1] * k_ec2[1]) + q[2] * k_ec2[2];
@@ -234,37 +270,44 @@ __global__ void __launch_bounds__(kThreads, 1) d2a2c_kernel(
         va[lev * Y * X + r1 * X + c1] = (v_cov - u_cov * k_cosa_s) * k_rsin2;
       }
     }
+    }
     __syncthreads();
 
     // stage 2: centers -> interfaces on the Cartesian vector, projected
-    if (on2) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+    if (on2 && k + l < k_end) {
       T acc_u = T(0), acc_v = T(0);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const T* row = s_q + c * VY * VX + (a2 + 1) * VX + b2;
+        const T* row = s_q + l * kQ + c * VY * VX + (a2 + 1) * VX + b2;
         const T qx = A1 * (row[1] + row[2]) + A2 * (row[0] + row[3]);
-        const T* col = s_q + c * VY * VX + a2 * VX + b2 + 1;
+        const T* col = s_q + l * kQ + c * VY * VX + a2 * VX + b2 + 1;
         const T qy = A1 * (col[VX] + col[2 * VX]) + A2 * (col[0] + col[3 * VX]);
         const T tu = qx * k_ew1[c];
         const T tv = qy * k_es2[c];
         acc_u = c == 0 ? tu : acc_u + tu;
         acc_v = c == 0 ? tv : acc_v + tv;
       }
-      s_uc[t] = acc_u;
-      s_vc[t] = acc_v;
+      s_uc[l * kC + t] = acc_u;
+      s_vc[l * kC + t] = acc_v;
+    }
     }
     __syncthreads();
 
     // stage 3: contravariant C winds; write uc, vc, ut, vt
-    if (on3) {
-      const T uc00 = s_uc[a3 * CX + b3];            // uc[j-1, i]
-      const T uc01 = s_uc[a3 * CX + b3 + 1];        // uc[j-1, i+1]
-      const T uc10 = s_uc[(a3 + 1) * CX + b3];      // uc[j, i]
-      const T uc11 = s_uc[(a3 + 1) * CX + b3 + 1];  // uc[j, i+1]
-      const T vc00 = s_vc[a3 * CX + b3];            // vc[j, i-1]
-      const T vc01 = s_vc[a3 * CX + b3 + 1];        // vc[j, i]
-      const T vc10 = s_vc[(a3 + 1) * CX + b3];      // vc[j+1, i-1]
-      const T vc11 = s_vc[(a3 + 1) * CX + b3 + 1];  // vc[j+1, i]
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+    const long long lev = (long long)s * K + k + l;
+    if (on3 && k + l < k_end) {
+      const T uc00 = s_uc[l * kC + a3 * CX + b3];            // uc[j-1, i]
+      const T uc01 = s_uc[l * kC + a3 * CX + b3 + 1];        // uc[j-1, i+1]
+      const T uc10 = s_uc[l * kC + (a3 + 1) * CX + b3];      // uc[j, i]
+      const T uc11 = s_uc[l * kC + (a3 + 1) * CX + b3 + 1];  // uc[j, i+1]
+      const T vc00 = s_vc[l * kC + a3 * CX + b3];            // vc[j, i-1]
+      const T vc01 = s_vc[l * kC + a3 * CX + b3 + 1];        // vc[j, i]
+      const T vc10 = s_vc[l * kC + (a3 + 1) * CX + b3];      // vc[j+1, i-1]
+      const T vc11 = s_vc[l * kC + (a3 + 1) * CX + b3 + 1];  // vc[j+1, i]
       const T vc4 = T(0.25) * ((vc00 + vc10) + (vc01 + vc11));
       const T uc4 = T(0.25) * ((uc00 + uc01) + (uc10 + uc11));
       const long long ox = lev * Y * X1 + j3 * X1 + i3;
@@ -282,6 +325,7 @@ __global__ void __launch_bounds__(kThreads, 1) d2a2c_kernel(
         vt[oy + X] = T(0);
       }
     }
+    }
     // no barrier needed here: the next level's staging writes s_u/s_v only,
     // last read in stage 1, and two barriers separate any reuse of s_q,
     // s_uc and s_vc from their last readers
@@ -292,7 +336,14 @@ template <typename T>
 int launch(const void* const* p, int S, int K, int Y, int X, void* stream) {
   const int tiles = ((Y + TY - 1) / TY) * ((X + TX - 1) / TX);
   dim3 grid(tiles, (K + kLevels - 1) / kLevels, S);
-  d2a2c_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  auto kern = d2a2c_kernel<T>;
+  constexpr size_t smem = smem_bytes<T>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const T*)p[8], (const T*)p[9], (const T*)p[10], (const T*)p[11],

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ._dispatch import route
@@ -162,6 +163,22 @@ def edge_band(grid):
     )
 
 
+def ieee_sqrt(x):
+    """The correctly rounded square root of ``x``, computed on the calling
+    thread for CPU tensors.
+
+    On the CPU ``torch.sqrt`` goes through MKL's vector math library, whose
+    high-accuracy mode is within an ulp but not correctly rounded, split
+    over the OpenMP worker threads. Under load from other processes the
+    roots computed by those threads once changed between two calls on the
+    same inputs in one process, and the tail's outputs with them; numpy's
+    ufunc is IEEE sqrt. On the card ``torch.sqrt`` is IEEE sqrt, as the
+    kernels' is."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def tracks_heat(config: DSWConfig) -> bool:
     """Whether the tail returns the dissipation estimate."""
     return config.d_con > 0.0 or config.vtdm4 > 0.0
@@ -193,7 +210,7 @@ def d_sw_tail_plain(u, v, ut, vt, divg_d, vort, vfx, vfy, dvfx, dvfy,
             + zeta_p[..., 1:, :-1]
             + zeta_p[..., 1:, 1:]
         )
-        smag = dt * torch.sqrt(divg_d * divg_d + zeta_c * zeta_c)
+        smag = dt * ieee_sqrt(divg_d * divg_d + zeta_c * zeta_c)
         damp2 = torch.maximum(d2_col, torch.clamp(config.dddmp * smag, max=0.20))
     else:
         damp2 = d2_col

@@ -39,6 +39,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -47,8 +48,9 @@ import torch
 from pace_tpu_torch import constants
 from pace_tpu_torch.grid.generation import GridSpec, MetricTerms
 from pace_tpu_torch.grid.grid_data import GridData
-from pace_tpu_torch.ops import c_sw, d_sw
+from pace_tpu_torch.ops import c_sw, d2a2c, d_sw, pgrad
 from pace_tpu_torch.ops import c_sw_tail_kernel as ck
+from pace_tpu_torch.ops import d2a2c_kernel as d2k
 from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
 from pace_tpu_torch.ops import fvtp2d_kernel as fk
 from pace_tpu_torch.ops import nonhydro
@@ -67,7 +69,7 @@ def libs(tmp_path_factory):
         pytest.skip("g++ is needed to build the CPU emulation")
     out = tmp_path_factory.mktemp("emu")
     libs = {}
-    for name in ("sim1", "fvtp2d", "d_sw_tail", "c_sw_tail"):
+    for name in ("sim1", "fvtp2d", "d_sw_tail", "c_sw_tail", "d2a2c", "hydro"):
         path = cuda_cpu_emulation.build(ROOT / "pace_tpu_torch" / "csrc" / f"{name}.cu",
                                         out / f"lib{name}.so")
         libs[name] = ctypes.CDLL(str(path))
@@ -78,6 +80,8 @@ def libs(tmp_path_factory):
         fn = getattr(libs["fvtp2d"], f)
         fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 7 + [I] * 4 + [P_], I
     _fvtp2d_argtypes(libs["fvtp2d"])
+    _d2a2c_argtypes(libs["d2a2c"])
+    _hydro_argtypes(libs["hydro"])
     return libs
 
 
@@ -509,10 +513,177 @@ def test_c_sw_tail_kernel_source_equals_the_earlier_design(libs, earlier_c_tail,
         assert torch.equal(a, b), int((a != b).sum())
 
 
+# ------------------------------------------------------------------ d2a2c
+
+
+def _d2a2c_argtypes(lib):
+    for f in ("pace_d2a2c_f32", "pace_d2a2c_f64"):
+        fn = getattr(lib, f)
+        fn.argtypes, fn.restype = [P_, I, I, I, I, P_], I
+
+
+def _d2a2c(lib, u, v, grid):
+    """The kernel source's (ua, va, uc, vc, ut, vt), outputs NaN-filled first."""
+    S, K, Y1, X = u.shape
+    Y = Y1 - 1
+    nan = lambda *sh: torch.full(sh, float("nan"), dtype=u.dtype)  # noqa: E731
+    outs = (nan(S, K, Y, X), nan(S, K, Y, X), nan(S, K, Y, X + 1), nan(S, K, Y + 1, X),
+            nan(S, K, Y, X + 1), nan(S, K, Y + 1, X))
+    order = [u, v, *(getattr(grid, f).contiguous() for f in d2a2c.GRID_FIELDS), *outs]
+    ptrs = (ctypes.c_void_p * len(order))(*(t.data_ptr() for t in order))
+    assert getattr(lib, "pace_d2a2c_" + _suffix(u.dtype))(ptrs, S, K, Y, X, None) == 0
+    return outs
+
+
+@pytest.fixture(scope="module")
+def d2a2c_setup():
+    """Two planes in both dtypes: C12 (S = 6, 18 x 18 cells with the halo,
+    the tile-edge band on every side, K = 30: two chunks of levels) and a
+    19 x 45 plane (S = 2, K = 3) whose grid constants are random with a
+    random band, neither a multiple of the kernel's 11 x 40 tile."""
+    mt = MetricTerms.generate(GridSpec(n_tile=12, npz=3, layout=(1, 1)))
+    rng = np.random.default_rng(21)
+    planes = {}
+    for dtype in (torch.float32, torch.float64):
+        c12 = GridData.from_metric_terms(mt, device="cpu", dtype=dtype)
+        shapes = d2k.grid_shapes(2, 19, 45)
+        rand = {f: torch.from_numpy(rng.standard_normal(sh)).to(dtype) for f, sh in shapes.items()}
+        rand["band_c"] = torch.from_numpy((rng.random(shapes["band_c"]) < 0.3) * 1.0).to(dtype)
+        planes[("C12", dtype)] = (c12, 30)
+        planes[("19x45", dtype)] = (SimpleNamespace(**rand), 3)
+    winds = {}
+    for (name, dtype), (grid, K) in planes.items():
+        S, Y, X = grid.band_c.shape
+        u = rng.standard_normal((S, K, Y + 1, X))
+        v = rng.standard_normal((S, K, Y, X + 1))
+        winds[(name, dtype)] = (torch.from_numpy(10 * u).to(dtype),
+                                torch.from_numpy(10 * v).to(dtype), grid)
+    return winds
+
+
+D2A2C_CASES = [(n, d) for n in ("C12", "19x45") for d in (torch.float32, torch.float64)]
+D2A2C_IDS = [f"{n}-{_suffix(d)}" for n, d in D2A2C_CASES]
+
+
+@pytest.mark.parametrize("plane,dtype", D2A2C_CASES, ids=D2A2C_IDS)
+def test_d2a2c_kernel_source_matches_the_plain_version(libs, d2a2c_setup, plane, dtype):
+    """Bit-identical on the rings a consumer reads: ua, va on the whole
+    plane, uc, vc without their outer two rings, ut, vt without three."""
+    u, v, grid = d2a2c_setup[(plane, dtype)]
+    got = _d2a2c(libs["d2a2c"], u, v, grid)
+    plain = d2a2c.d2a2c_plain(u, v, grid)
+    if plane == "C12":
+        assert bool((grid.band_c > 0.5).any()) and bool((grid.band_c < 0.5).any())
+    for name, a, b, r in zip(("ua", "va", "uc", "vc", "ut", "vt"), got, plain,
+                             (0, 0, 2, 2, 3, 3)):
+        a, b = a[..., r:a.shape[-2] - r, r:a.shape[-1] - r], b[..., r:b.shape[-2] - r,
+                                                              r:b.shape[-1] - r]
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.fixture(scope="module")
+def earlier_d2a2c(libs, tmp_path_factory):
+    """d2a2c's source before its retiling (48d33f4)."""
+    lib = _earlier_source(tmp_path_factory, "48d33f4", "d2a2c")
+    _d2a2c_argtypes(lib)
+    return lib
+
+
+@pytest.mark.parametrize("plane,dtype", D2A2C_CASES, ids=D2A2C_IDS)
+def test_d2a2c_kernel_source_equals_the_earlier_design(libs, earlier_d2a2c, d2a2c_setup, plane,
+                                                      dtype):
+    u, v, grid = d2a2c_setup[(plane, dtype)]
+    got = _d2a2c(libs["d2a2c"], u, v, grid)
+    ref = _d2a2c(earlier_d2a2c, u, v, grid)
+    for a, b in zip(got, ref):  # every point written (no NaN left) and equal
+        assert torch.equal(a, b), int((a != b).sum())
+
+
+# ------------------------------------------------------------------ hydro
+
+HYDRO_ALL = ("pe", "peln", "pk", "pkz", "gz")
+#: every form the model asks for: the nonhydrostatic step's two, the
+#: hydrostatic step's two, and all five outputs
+HYDRO_NEEDS = (("pkz",), ("pk", "pkz"), ("pk", "pkz", "gz"), ("pk", "gz"), HYDRO_ALL)
+HYDRO_CASES = [(K, d, need) for K in (2, 79) for d in (torch.float32, torch.float64)
+               for need in HYDRO_NEEDS]
+HYDRO_IDS = [f"K{K}-{_suffix(d)}-{'+'.join(need)}" for K, d, need in HYDRO_CASES]
+
+
+def _hydro_argtypes(lib):
+    for f in ("pace_hydro_f32", "pace_hydro_f64"):
+        fn = getattr(lib, f)
+        fn.argtypes, fn.restype = [P_, P_, P_, D, D, D, D, P_, P_, P_, P_, P_, I, I, I, P_], I
+
+
+def _hydro_columns(K, dtype):
+    """delp, pt (2, K, 7, 45) and phis: 630 columns, no multiple of the
+    kernel's blocks; in float32 delp on a 1/4 Pa lattice (see _columns)."""
+    rng = np.random.RandomState(K)
+    sh = (2, K, 7, 45)
+    delp = 50.0 + 100.0 * rng.rand(*sh) + (1e5 / K if K < 10 else 0.0)
+    delp = np.round(4.0 * delp) / 4.0
+    arrays = (delp, 250.0 + 60.0 * rng.rand(*sh), 500.0 * rng.randn(2, 7, 45))
+    return [torch.from_numpy(a).to(dtype).contiguous() for a in arrays]
+
+
+def _hydro(lib, delp, pt, phis, ptop, need):
+    S, K, Y, X = delp.shape
+    outs = {n: torch.full((S, K if n == "pkz" else K + 1, Y, X), float("nan"), dtype=delp.dtype)
+            for n in need}
+    rc = getattr(lib, "pace_hydro_" + _suffix(delp.dtype))(
+        delp.data_ptr(), pt.data_ptr(), phis.data_ptr(), ptop, constants.P_REF,
+        constants.KAPPA, constants.CP_AIR, *(outs[n].data_ptr() if n in outs else None
+                                             for n in HYDRO_ALL), S, K, Y * X, None)
+    assert rc == 0
+    return outs
+
+
+@pytest.mark.parametrize("K,dtype,need", HYDRO_CASES, ids=HYDRO_IDS)
+def test_hydro_kernel_source_matches_the_plain_version(libs, K, dtype, need):
+    """Each output asked for, against the plain version evaluated in float64
+    on the same inputs: in float64 within 1e-12 of each output's maximum; in
+    float32 within twice the plain float32 version's own error plus 2 ulp of
+    the maximum (chip_smoke.py's yardstick: logf and powf round here as the
+    host's C library does, torch.log and torch.pow otherwise)."""
+    delp, pt, phis = _hydro_columns(K, dtype)
+    ptop = 300.0
+    got = _hydro(libs["hydro"], delp, pt, phis, ptop, need)
+    plain = dict(zip(HYDRO_ALL, pgrad.hydrostatic_interfaces(delp, pt, phis, ptop)))
+    truth = dict(zip(HYDRO_ALL, pgrad.hydrostatic_interfaces(delp.double(), pt.double(),
+                                                             phis.double(), ptop)))
+    ulp = torch.finfo(dtype).eps
+    for name in need:
+        a, scale = got[name].double(), float(truth[name].abs().max())
+        err = float((a - truth[name]).abs().max())
+        if dtype == torch.float64:
+            assert err <= 1e-12 * scale, (name, err, scale)
+        else:
+            e_plain = float((plain[name].double() - truth[name]).abs().max())
+            assert err <= 2 * e_plain + 2 * ulp * scale, (name, err, e_plain, scale)
+
+
+@pytest.fixture(scope="module")
+def earlier_hydro(libs, tmp_path_factory):
+    """The hydrostatic chain's source before its redesign (48d33f4)."""
+    lib = _earlier_source(tmp_path_factory, "48d33f4", "hydro")
+    _hydro_argtypes(lib)
+    return lib
+
+
+@pytest.mark.parametrize("K,dtype,need", HYDRO_CASES, ids=HYDRO_IDS)
+def test_hydro_kernel_source_equals_the_earlier_design(libs, earlier_hydro, K, dtype, need):
+    delp, pt, phis = _hydro_columns(K, dtype)
+    got = _hydro(libs["hydro"], delp, pt, phis, 300.0, need)
+    ref = _hydro(earlier_hydro, delp, pt, phis, 300.0, need)
+    for name in need:
+        assert torch.equal(got[name], ref[name]), (name, int((got[name] != ref[name]).sum()))
+
+
 # ------------------------------------------ the tuning candidates' tables
 
 @pytest.mark.parametrize("name", ["sim1", "fvtp2d", "tracer", "d_sw_tail", "single",
-                                  "c_sw_tail"])
+                                  "c_sw_tail", "d2a2c", "hydro"])
 def test_variant_candidates_apply_to_the_current_sources(name):
     """Every candidate and diagnostic of tools/torch_kernel_variants.py
     finds its text in the current source and changes it (the tool raises

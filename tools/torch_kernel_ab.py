@@ -1,24 +1,25 @@
 #!/usr/bin/env python3
 """Time an earlier revision's remap, nh_p_grad, sim1, multi-field transport,
-tracer-block transport, single-field transport, D-grid tail and C-grid tail
-kernels against the current ones on one NVIDIA card, in turns, at the dycore
+tracer-block transport, single-field transport, D-grid tail, C-grid tail,
+d2a2c and hydrostatic-chain kernels against the current ones on one NVIDIA card, in turns, at the dycore
 step's shapes.
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
     mkdir -p build/prev
-    for f in remap pgrad sim1 fvtp2d d_sw_tail c_sw_tail; do
+    for f in remap pgrad sim1 fvtp2d d_sw_tail c_sw_tail d2a2c hydro; do
         git show <rev>:pace_tpu_torch/csrc/$f.cu > build/prev/$f.cu
     done
-    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels single,c_sw_tail]
+    python3 tools/torch_kernel_ab.py --prev build/prev [--kernels d2a2c,hydro]
 
 ``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, tracer, single,
-d_sw_tail, c_sw_tail, halo`` (default all); the earlier directory needs the
+d_sw_tail, c_sw_tail, d2a2c, hydro, halo`` (default all); the earlier directory needs the
 sources of the kernels picked (``fvtp2d.cu`` for ``fvtp2d``, ``tracer`` and
 ``single``). The earlier sources must export the C functions the current
 wrappers call (``pace_remap_f32`` ..., ``pace_pgrad_f32`` ...,
 ``pace_sim1_f32`` ..., ``pace_fvtp2d_f32`` ..., ``pace_fvtp2d_multi_f32``
-..., ``pace_d_sw_tail_f32`` ..., ``pace_c_sw_tail_f32`` ...) with the
+..., ``pace_d_sw_tail_f32`` ..., ``pace_c_sw_tail_f32`` ..., ``pace_d2a2c_f32``
+..., ``pace_hydro_f32`` ...) with the
 current arguments; the earlier tracer block is the earlier
 ``pace_fvtp2d_f32`` / ``_f64`` with NQ tracers (the design before the tracer
 kernel: one block per tracer), the current one ``pace_fvtp2d_tracer_f32`` /
@@ -45,7 +46,12 @@ fluxes. The C-grid tail takes the operands of one C-grid half step from the
 baroclinic-wave state, as ``chip_smoke.py`` builds them. The D-grid tail takes ``chip_smoke.py``'s two tail cases
 on one acoustic substep's fields (the benchmark's nord 3 with every switch
 on; nord 1 without band, heat or vorticity damping), in float32 and on the
-same inputs in float64 (with a float64 copy of the grid).
+same inputs in float64 (with a float64 copy of the grid). d2a2c takes the
+D-grid winds of the baroclinic-wave state after their exchange, the
+hydrostatic chain one C-grid tail's delpc and ptc in each form a step
+launches (``chip_smoke.HYDRO_FORMS``: pkz, pk and pkz, pk, pkz and gz); both
+in float32 (timed) and float64 (the bits, 5 launches, d2a2c with a float64
+copy of the grid).
 
 With ``halo`` picked, the halo exchange plan that launches most often in one
 dycore step (``demos/dycore_step``, with a seeded tracer block): launches
@@ -79,7 +85,10 @@ log = chip_smoke.log
 time_ms = chip_smoke.time_ms
 nbytes = chip_smoke.nbytes
 
-KERNELS = ("remap", "pgrad", "sim1", "fvtp2d", "tracer", "single", "d_sw_tail", "c_sw_tail")
+KERNELS = ("remap", "pgrad", "sim1", "fvtp2d", "tracer", "single", "d_sw_tail", "c_sw_tail",
+           "d2a2c", "hydro")
+#: the hydrostatic chain's forms a step launches
+HYDRO_FORMS = chip_smoke.HYDRO_FORMS
 #: the kernel library each pick builds (the tracer and single-field kernels
 #: live in fvtp2d.cu)
 LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d"}
@@ -312,10 +321,11 @@ def single_transport(libs, n, npz, dev):
     return ok
 
 
-def c_sw_tail_operands(n, npz, dev):
+def c_sw_tail_operands(n, npz, dev, phis=False):
     """The C-grid tail's arguments after one d2a2c and its exchanges from the
     baroclinic-wave state, as chip_smoke.py builds them: those of
-    ``c_sw_tail_cuda``."""
+    ``c_sw_tail_cuda`` (with ``phis``, also the state's surface
+    geopotential)."""
     from pace_tpu_torch.demos import cgrid_half_step as cdemo
     from pace_tpu_torch.ops import d2a2c_kernel as d2k
 
@@ -328,8 +338,72 @@ def c_sw_tail_operands(n, npz, dev):
     uc_x, vc_x = halo.update_vector(uc, vc, kind="cgrid", fold="x")
     uc_y, vc_y = halo.update_vector(uc, vc, kind="cgrid", fold="y")
     ua_y, va_x = halo.update_vector_fold_pair(ua, va, kind="agrid")
-    return (u_y, v_x, delp_x, pt_x, uc, vc, uc_x, vc_x, uc_y, vc_y, ua, va, va_x, ua_y, grid,
+    args = (u_y, v_x, delp_x, pt_x, uc, vc, uc_x, vc_x, uc_y, vc_y, ua, va, va_x, ua_y, grid,
             ccase.dt2)
+    return (args, st.phis) if phis else args
+
+
+def d2a2c_operands(n, npz, dev):
+    """d2a2c's arguments on the baroclinic-wave state, as chip_smoke.py
+    builds them: ``(u_y, v_x, grid)``."""
+    from pace_tpu_torch.demos import cgrid_half_step as cdemo
+
+    ccase = cdemo.build_case(n, npz, device=dev, dtype=torch.float32)
+    u_y, v_x = ccase.halo.update_vector_fold_pair(ccase.state.u, ccase.state.v, kind="dgrid")
+    return u_y, v_x, ccase.grid
+
+
+def hydro_operands(n, npz, dev):
+    """The hydrostatic chain's arguments after one C-grid tail from the
+    baroclinic-wave state, as chip_smoke.py builds them: ``(delpc, ptc,
+    phis, ptop)``."""
+    from pace_tpu_torch.ops import c_sw_tail_kernel as ck
+
+    args, phis = c_sw_tail_operands(n, npz, dev, phis=True)
+    delpc, ptc = ck.c_sw_tail_cuda(*args)[:2]
+    return delpc, ptc, phis, args[14].ptop
+
+
+def d2a2c(libs, n, npz, dev):
+    """d2a2c, earlier against current, in float32 (timed, 20 launches) and
+    float64 (the bits, 5, with a float64 copy of the grid)."""
+    from pace_tpu_torch.ops import d2a2c as d2a2c_ops
+    from pace_tpu_torch.ops import d2a2c_kernel as d2k
+
+    u_y, v_x, grid = d2a2c_operands(n, npz, dev)
+    ok = True
+    for dtype, reps in ((torch.float32, 20), (torch.float64, 5)):
+        g = grid if dtype == torch.float32 else grid_as(grid, dtype)
+        u, v = u_y.to(dtype), v_x.to(dtype)
+        outs = d2k.d2a2c_cuda(u, v, g)
+        consts = [getattr(g, f) for f in d2a2c_ops.GRID_FIELDS]
+        ok &= in_turns(f"d2a2c {tuple(u.shape)} {str(dtype)[6:]}", libs["d2a2c"], "d2a2c",
+                       lambda: d2k.d2a2c_cuda(u, v, g), reps, nbytes(u, v, *consts, *outs))
+        del u, v, outs
+        torch.cuda.empty_cache()
+    return ok
+
+
+def hydro(libs, n, npz, dev):
+    """The hydrostatic chain, earlier against current, in each of
+    ``HYDRO_FORMS``: float32 (timed, 20 launches) and float64 (the bits,
+    5)."""
+    from pace_tpu_torch.ops import hydro_kernel as hyk
+
+    delpc, ptc, phis, ptop = hydro_operands(n, npz, dev)
+    ok = True
+    for dtype, reps in ((torch.float32, 20), (torch.float64, 5)):
+        d, p, ph = delpc.to(dtype), ptc.to(dtype), phis.to(dtype)
+        for need in HYDRO_FORMS:
+            outs = hyk.hydrostatic_interfaces_cuda(d, p, ph, ptop, need=need)
+            reads = (d, p, ph) if "gz" in need else (d,)
+            ok &= in_turns(f"hydro need={need} {tuple(d.shape)} {str(dtype)[6:]}", libs["hydro"],
+                           "hydro", lambda: hyk.hydrostatic_interfaces_cuda(d, p, ph, ptop,
+                                                                           need=need),
+                           reps, nbytes(*reads, *(o for o in outs if o is not None)))
+        del d, p, ph, outs
+        torch.cuda.empty_cache()
+    return ok
 
 
 def c_sw_tail(libs, n, npz, dev):
@@ -531,10 +605,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--prev", required=True,
                     help="directory of the earlier sources (remap.cu, pgrad.cu, sim1.cu, "
-                         "fvtp2d.cu, d_sw_tail.cu, c_sw_tail.cu)")
+                         "fvtp2d.cu, d_sw_tail.cu, c_sw_tail.cu, d2a2c.cu, hydro.cu)")
     ap.add_argument("--kernels", default=",".join(KERNELS + ("halo",)),
                     help="comma-separated: remap, pgrad, sim1, fvtp2d, tracer, single, "
-                         "d_sw_tail, c_sw_tail, halo (default all)")
+                         "d_sw_tail, c_sw_tail, d2a2c, hydro, halo (default all)")
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--npz", type=int, default=79)
     args = ap.parse_args()
@@ -563,6 +637,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "c_sw_tail" in picked:
         ok &= c_sw_tail(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
+    if "d2a2c" in picked:
+        ok &= d2a2c(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
+    if "hydro" in picked:
+        ok &= hydro(libs, args.n, args.npz, dev)
         torch.cuda.empty_cache()
     libs = {k: v for k, v in libs.items() if k in picked}
     ok &= sim1_and_multi(libs, args.n, args.npz, dev)

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
 """Time the tuning candidates of the sim1, multi-field transport,
-tracer-block transport, single-field transport, D-grid tail and C-grid tail
-kernels on one NVIDIA card, at the dycore step's shapes.
+tracer-block transport, single-field transport, D-grid tail, C-grid tail,
+d2a2c and hydrostatic-chain kernels on one NVIDIA card, at the dycore step's
+shapes.
 
 Each candidate is the current source (``pace_tpu_torch/csrc/sim1.cu``,
-``fvtp2d.cu``, ``d_sw_tail.cu`` or ``c_sw_tail.cu``) with one or more of its
+``fvtp2d.cu``, ``d_sw_tail.cu``, ``c_sw_tail.cu``, ``d2a2c.cu`` or
+``hydro.cu``) with one or more of its
 tuning constants changed (``CANDIDATES`` below: tile width and blocks an SM
 for sim1; segment lengths, blocks an SM, the tile and, for the single-field
 kernel, levels a block, level buffers or the tracer kernel in its place for
 the transports; tile shape, levels a block, threads and blocks an SM for the
-tails), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
+tails; tile, levels a block and levels a step for d2a2c; threads a block,
+levels a copy, registers and unrolling for hydro), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
 (gitignored), and run through the current wrapper on the inputs of
 ``tools/torch_kernel_ab.py`` (C192 npz=79 f32: sim1 on one nonhydrostatic
 C-grid half step's operands, the multi-field transport on d_sw's pt /
 vorticity / w, the tracer block on chip_smoke.py's nine tracers, the
 single-field transport on the substep's delp call (corner pack, K = 79) and
 heights call (full qy, K = 80), the D-grid tail on the benchmark's nord 3
-case, the C-grid tail on one C-grid half step's operands). Two rounds of
+case, the C-grid tail on one C-grid half step's operands, d2a2c on the
+exchanged winds of the baroclinic-wave state, hydro on one C-grid tail's
+delpc and ptc in each form a step launches). Two rounds of
 CUDA-event means of 20 launches (the tracer block 5), the current build first
 in each, and whether each candidate gives the current build's bits. Run from
 the repository root on a machine with a card and ``nvcc``::
 
-    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,single,d_sw_tail,c_sw_tail]
+    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,single,d_sw_tail,c_sw_tail,d2a2c,hydro]
 
 Prints ``[build]`` lines (registers and spills), ``[variant]`` lines and the
 card's name and power limit. ``DIAGNOSTICS`` adds builds that leave a part of
@@ -71,6 +76,18 @@ _SINGLE_SEG_OUT = "constexpr int kSegOutSingle = 4;"
 _CSW_TILE = "constexpr int TY = 16;\nconstexpr int TX = 40;"
 _CSW_THREADS = "constexpr int kThreads = 384;\n"
 _CSW_BOUNDS = "__launch_bounds__(kThreads) c_sw_tail_kernel"
+_D2A2C_TILE = "constexpr int TY = 12;\nconstexpr int TX = 40;\n"
+_D2A2C_THREADS = "constexpr int kThreads = 704;  // >= VY * VX"
+_D2A2C_LEVELS = "constexpr int kLevels = 28;    // levels walked by one block"
+_D2A2C_STEP = "return sizeof(T) == 8 ? 1 : 2;"
+_HYDRO_THREADS = "constexpr int kThreads = 128;"
+_HYDRO_CHUNK = "constexpr int kChunk = 4;"
+_HYDRO_BLOCKS = "return sizeof(T) == 8 ? 8 : 16;"
+_HYDRO_UNROLL = "#pragma unroll 2\n    for (int j = 0; j < n; ++j) {"
+_HYDRO_LOG = "float vlog<float>(float x) { return logf(x); }"
+_HYDRO_POW = "float vpow<float>(float x, float y) { return powf(x, y); }"
+_HYDRO_DIVS = [("pe / p_ref, kappa);\n      const long long o", "pe * p_ref, kappa);\n      const long long o"),
+               ("= (pk_n - pk) / (kappa", "= (pk_n - pk) * (kappa")]
 
 
 def _sim1(blocks, smem, threads=256):
@@ -111,6 +128,20 @@ def _c_sw_tail(ty=16, tx=40, threads=384, blocks=None):
     if blocks:
         subs.append((_CSW_BOUNDS, f"__launch_bounds__(kThreads, {blocks}) c_sw_tail_kernel"))
     return subs
+
+
+def _d2a2c(ty=12, tx=40, levels=28, step=2):
+    threads = ((ty + 4) * (tx + 4) + 31) // 32 * 32
+    return [(_D2A2C_TILE, f"constexpr int TY = {ty};\nconstexpr int TX = {tx};\n"),
+            (_D2A2C_STEP, f"return sizeof(T) == 8 ? 1 : {step};"),
+            (_D2A2C_THREADS, f"constexpr int kThreads = {threads};  // >= VY * VX"),
+            (_D2A2C_LEVELS, f"constexpr int kLevels = {levels};    // levels walked by one block")]
+
+
+def _hydro(threads=128, chunk=4, blocks=16):
+    return [(_HYDRO_THREADS, f"constexpr int kThreads = {threads};"),
+            (_HYDRO_CHUNK, f"constexpr int kChunk = {chunk};"),
+            (_HYDRO_BLOCKS, f"return sizeof(T) == 8 ? 8 : {blocks};")]
 
 
 def _tail(ty, tx, levels, blocks, threads=256):
@@ -166,6 +197,31 @@ DIAGNOSTICS = {
     # the C-grid tail reads its operands straight from device memory in its
     # passes: nothing to separate
     "c_sw_tail": {},
+    # d2a2c: every level's copies and first barrier without its three stages
+    # d2a2c: the stages without the next level's loads (on stale shared
+    # memory)
+    "d2a2c": {
+        "diagnostic: stages alone (no loads)": [
+            ("    if (k + L < k_end) prefetch(k + L);\n", "")],
+    },
+    # hydro (float32): its loads and stores with log, pow and the two
+    # divisions replaced by a multiplication or nothing, and each left out
+    # alone
+    "hydro": {
+        "diagnostic: loads and stores alone": [
+            (_HYDRO_LOG, "float vlog<float>(float x) { return x; }"),
+            (_HYDRO_POW, "float vpow<float>(float x, float y) { return x * y; }"), *_HYDRO_DIVS],
+        "diagnostic: without pow": [
+            (_HYDRO_POW, "float vpow<float>(float x, float y) { return x * y; }")],
+        "diagnostic: without log": [(_HYDRO_LOG, "float vlog<float>(float x) { return x; }")],
+        "diagnostic: without the two divisions": _HYDRO_DIVS,
+        "formula: pk = exp(kappa * (peln - log(p_ref)))": [
+            ("      const T pk_n = vpow<T>(pe / p_ref, kappa);",
+             "      const T pk_n = exp(kappa * (peln_n - log(p_ref)));")],
+        "formula: pe times the reciprocal of p_ref": [
+            ("      const T pk_n = vpow<T>(pe / p_ref, kappa);",
+             "      const T pk_n = vpow<T>(pe * (T(1) / p_ref), kappa);")],
+    },
 }
 
 #: name -> (source name, substitutions); the current source is "current":
@@ -238,7 +294,31 @@ CANDIDATES = {
         "16 x 36 slots": _c_sw_tail(16, 36),
         "8 x 32 slots, 256 threads": _c_sw_tail(8, 32, threads=256),
     },
+    "d2a2c": {
+        "16 x 32 tiles, one level a step, 16 levels a block (the earlier design)":
+            _d2a2c(16, 32, 16, step=1),
+        "one level a step": _d2a2c(step=1),
+        "three levels a step": _d2a2c(step=3),
+        "11 x 40 tiles": _d2a2c(11),
+        "14 x 40 tiles": _d2a2c(14),
+        "10 x 40 tiles": _d2a2c(10),
+        "20 levels a block": _d2a2c(levels=20),
+        "40 levels a block": _d2a2c(levels=40),
+    },
+    "hydro": {
+        "64 threads a block": _hydro(64, blocks=32),
+        "256 threads a block": _hydro(256, blocks=8),
+        "chunks of 2 levels": _hydro(chunk=2),
+        "chunks of 8 levels": _hydro(chunk=8),
+        "chunks of 16 levels": _hydro(chunk=16),
+        "at most 40 registers": _hydro(blocks=12),
+        "chunks of 8 levels, at most 40 registers": _hydro(chunk=8, blocks=12),
+        "no register cap": _hydro(blocks=1),
+        "levels unrolled by 1": [(_HYDRO_UNROLL, _HYDRO_UNROLL.replace("unroll 2", "unroll 1"))],
+        "levels unrolled by 4": [(_HYDRO_UNROLL, _HYDRO_UNROLL.replace("unroll 2", "unroll 4"))],
+    },
 }
+
 
 #: the kernel library each pick builds
 LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d"}
@@ -287,9 +367,9 @@ def build_candidates(name):
     return libs
 
 
-def time_candidates(name, call, libs, reps=20):
+def time_candidates(name, call, libs, reps=20, library=None):
     """Two rounds over the current build and the candidates."""
-    lib_name = LIBRARY.get(name, name)
+    lib_name = library or LIBRARY.get(name, name)
     current = _build.library(lib_name)
     order = {"current": current, **libs}
     ref = None
@@ -361,6 +441,23 @@ def main() -> int:
         time_candidates("c_sw_tail", lambda: ck.c_sw_tail_cuda(*c_args),
                         build_candidates("c_sw_tail"))
         del c_args
+        torch.cuda.empty_cache()
+    if "d2a2c" in picked:
+        from pace_tpu_torch.ops import d2a2c_kernel as d2k
+
+        d_args = ab.d2a2c_operands(args.n, args.npz, dev)
+        time_candidates("d2a2c", lambda: d2k.d2a2c_cuda(*d_args), build_candidates("d2a2c"))
+        del d_args
+        torch.cuda.empty_cache()
+    if "hydro" in picked:
+        from pace_tpu_torch.ops import hydro_kernel as hyk
+
+        h_args = ab.hydro_operands(args.n, args.npz, dev)
+        libs = build_candidates("hydro")
+        for need in ab.HYDRO_FORMS:
+            time_candidates(f"hydro need={need}", lambda: hyk.hydrostatic_interfaces_cuda(
+                *h_args, need=need), libs, library="hydro")
+        del h_args
         torch.cuda.empty_cache()
     if "d_sw_tail" in picked:
         from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
