@@ -25,7 +25,8 @@ Phases (any failure raises and exits non-zero):
    timed in each form a step launches (``HYDRO_FORMS``).
    Nonhydrostatic vertical, on the fields of one nonhydrostatic half step:
    the interface heights by the same float64 yardstick, ``updatedz_c``
-   within 4 ulp of each output's maximum, and the vertical solve (sim1) on
+   within 4 ulp of each output's maximum and bit-identical to the plain
+   version outside the outer ring, and the vertical solve (sim1) on
    the columns a consumer reads, within 4 ulp of each output's maximum on
    the compute domain in float32 and within ``SIM1_F64_REL_TOL`` of it in
    float64 (see ``check_sim1``), and again at K = 158 and K = 2 on a 5 x 37
@@ -49,8 +50,10 @@ Phases (any failure raises and exits non-zero):
    outputs of the vertical solve on that half step's fields; the substep up
    to the vertical solve; one whole dycore step at C24 npz=8 (k_split=2,
    n_split=2) within ``STEP_F64_REL_TOL`` of each field's scale
-   (``step_f64_scales``), and that step again on the card with the pressure
-   gradient's u and v set to NaN outside the compute domain, identical;
+   (``step_f64_scales``), that step again on the card with the pressure
+   gradient's u and v set to NaN outside the compute domain, identical, and
+   that step with the total-energy fixer on (``consv_te = 1``), held the
+   same way;
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
@@ -75,9 +78,13 @@ Phases (any failure raises and exits non-zero):
    the range of ``ps``, wind bounds), then whole hydrostatic steps with the
    flag set of ``examples/configs/baroclinic_c12.yaml`` (``[step
    hydrostatic]``, ``HYDROSTATIC_STEP_CONFIG``), with the same gates and
-   their own exact launch counts;
+   their own exact launch counts, then ``bench.py``'s configuration with the
+   total-energy fixer on (``[step consv_te]``, ``consv_te = 1``, 1 warm and
+   1 timed step: the step's gates, exactly the launches of ``[step]``, the
+   fixer's increment of each outer step);
 5. where the time goes: two more steps of each demo under
-   ``torch.profiler``, device time by kernel.
+   ``torch.profiler`` (one of each dycore step with and without the fixer),
+   device time by kernel.
 
 The last lines are the card's name and power limit (``nvidia-smi``), the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
@@ -407,7 +414,8 @@ def step_f64_scales(case, constants):
 
 def profile_steps(label, step_fn, wall_ms, top=10, calls=2):
     """``calls`` calls of ``step_fn`` under torch.profiler: device time by
-    kernel per call, the ``top`` largest."""
+    kernel per call, the ``top`` largest. Returns the device ms per call
+    (None where the profiler recorded none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -427,8 +435,9 @@ def profile_steps(label, step_fn, wall_ms, top=10, calls=2):
             f"wall (busy share {busy / wall_ms:.3f})")
         for name, t, n_calls in rows[:top]:
             log(f"[profile] {t:9.3f} ms {100 * t / busy:5.1f}% x{n_calls:<3d} {name[:90]}")
-    else:
-        log(f"[profile] {label}: the profiler recorded no device time: not measured")
+        return busy
+    log(f"[profile] {label}: the profiler recorded no device time: not measured")
+    return None
 
 
 def away_from_cube_corners(grid, shape, device):
@@ -948,7 +957,11 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         a, b = ring(a, 1), ring(b, 1)
         u_err[nm] = check_close(f"updatedz_c {nm} (outer ring off)", a, b,
                                 4 * ulp * float(b.abs().max()))
-        log_identical(f"updatedz_c {nm}", a, b)
+        # the kernel rounds op for op like the plain version (one IEEE
+        # division a point): bit-identical outside the unspecified ring
+        if log_identical(f"updatedz_c {nm} (outer ring off)", a, b):
+            raise AssertionError(f"updatedz_c {nm}: differs from the plain version outside "
+                                 f"the outer ring")
     ms = time_ms(lambda: uzk.updatedz_c_cuda(*u_args), 20)
     plain_ms = time_ms(lambda: nh_ops.updatedz_c_plain(*u_args), 3)
     b_ms, b_by = bound(nbytes(*u_args[:5], *u_got),
@@ -1509,7 +1522,30 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         f"to the step without{': ' + ', '.join(differ) if differ else ''}")
     if differ:
         raise AssertionError(f"the step reads nh_p_grad's ghost columns: {differ}")
-    del a_case, b_case, a_st, b_st, p_case, p_st, q_step
+    del a_case, a_st, b_st, p_case, p_st
+
+    # the same step with the total-energy fixer on (te1 before the remap, te2,
+    # the global increment of each outer step and pt += dT / pkz after it),
+    # held the same way
+    e_cases = [ddemo.build_case(device=d, consv_te=1.0, **small) for d in (dev, "cpu")]
+    for c in e_cases:
+        c.state.q = q_step.to(c.state.q.device)
+    e_card, e_cpu = (c.core.step_dynamics(c.state) for c in e_cases)
+    worst = {}
+    for nm in STEP_FIELDS:
+        x, y = ring(getattr(e_card, nm).cpu(), 3), ring(getattr(e_cpu, nm), 3)
+        scale = max(float(y.abs().max()), scales.get(nm, 0.0))
+        worst[nm] = float((x - y).abs().max()) / scale
+    e_dT = [[float(t) for t in c.core.energy_fix_dT] for c in e_cases]
+    log(f"[check] C24 npz=8 f64 dycore step with consv_te=1 (k_split=2, n_split=2), card "
+        f"kernels vs CPU plain path: increments dT {e_dT[0]} K on the card, {e_dT[1]} K on the "
+        f"CPU; max diff over each field's scale: "
+        + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
+    bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
+    if bad:
+        raise AssertionError(f"C24 f64 dycore step with consv_te=1 departs from the CPU "
+                             f"reference: {bad}")
+    del b_case, q_step, e_cases, e_card, e_cpu
 
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
@@ -1763,6 +1799,12 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             f"{stats['pt_max']:.3f}] K")
         log(f"[{tag}] launches in {n_steps} steps: {st_launches}")
         failures = []
+        if cfg_.consv_te > 0:
+            log(f"[{tag}] energy fixer increment of each outer step [K], step by step: "
+                + "; ".join(", ".join(f"{t:.6f}" for t in dts) for dts in stout["energy_fix_dT"]))
+            dts = [t for step_dts in stout["energy_fix_dT"] for t in step_dts]
+            if len(dts) != n_steps * cfg_.k_split or not all(abs(t) < float("inf") for t in dts):
+                failures.append(f"energy fixer increments {stout['energy_fix_dT']}")
         if not stats["finite"]:
             failures.append("non-finite fields")
         if not stats["delp_min"] > 0:
@@ -1799,6 +1841,12 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                                 timestep=HYDROSTATIC_STEP_DT)
     h_out, h_launches = run_steps("step hydrostatic", h_case, HYDROSTATIC_STEP_LAUNCHES)
     del h_case
+    # bench.py's configuration with the total-energy fixer on: the same
+    # kernels, the same launches a step
+    e_case = ddemo.build_case(n, npz, device=dev, dtype=f32, consv_te=1.0)
+    e_out, e_launches = run_steps("step consv_te", e_case, STEP_LAUNCHES, warm=1, timed=1)
+    log(f"[step consv_te] {e_out['ms_per_step']:.3f} ms/step of wall time against "
+        f"{stout['ms_per_step']:.3f} ms/step of [step]")
 
     # ------------------------------------------------------------------
     # 5. where the time goes: two more steps under the profiler (after the
@@ -1820,7 +1868,17 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     def dycore_step():
         step_case.state = step_case.core.step_dynamics(step_case.state)
 
-    profile_steps("dycore step", dycore_step, stout["ms_per_step"], top=30, calls=1)
+    step_dev = profile_steps("dycore step", dycore_step, stout["ms_per_step"], top=30, calls=1)
+
+    def dycore_step_consv_te():
+        e_case.state = e_case.core.step_dynamics(e_case.state)
+
+    e_dev = profile_steps("dycore step consv_te", dycore_step_consv_te, e_out["ms_per_step"],
+                          top=10, calls=1)
+    if step_dev is not None and e_dev is not None:
+        log(f"[step consv_te] device time {e_dev:.3f} ms/step against {step_dev:.3f} ms/step "
+            f"of [step]")
+    del e_case
 
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
@@ -1845,7 +1903,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         by_path = {"tracer_advection": launches[name], "cgrid_half_step": c_launches[name],
                    "nh_cgrid_half_step": n_launches[name],
                    "acoustic_substep": s_launches[name], "dycore_step": st_launches[name],
-                   "dycore_step_hydrostatic": h_launches[name]}
+                   "dycore_step_hydrostatic": h_launches[name],
+                   "dycore_step_consv_te": e_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

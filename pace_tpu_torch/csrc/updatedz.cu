@@ -26,12 +26,18 @@
 // cell-to-interface reads clamp at the plane's edge as its edge-replicating
 // pads do, so the two agree on the whole plane.
 // Bound: bytes (four fields read, one written, ~0.375 GB, ~0.11 ms for the
-// same call; ~25 operations per point). Design: a block owns a 32 x 8 tile
-// of columns; each thread walks its column's K+1 interfaces and carries the
-// previous layer's four face fluxes in registers, so every layer flux is read
-// once per face. Neighbouring heights come through L1 (each value is read by
-// three threads of the tile); nothing is staged in shared memory.
-
+// same call; ~26 operations per point). A level's work is short, so what
+// sets the pace is how many loads are in flight. Design: one thread a
+// column and a chunk of kUzLevels interfaces, the columns flattened over
+// (s, y, x) so that no lane idles but in the last block. Both upwind
+// candidates of every face are loaded before the fluxes' signs are known
+// and selected afterwards, so that a level is one memory round trip, not
+// two in a row; in float32 the level loop is unrolled by two so that the
+// next level's loads are in flight while this one is computed. A chunk that
+// starts below the top reads the layer above it once more. Every output is
+// the same function of the same inputs as in the plain version. On an H100
+// (700 W) the loads and stores alone take nine tenths of the kernel's time
+// (PERF.md).
 //
 // flux_height_update_kernel replaces `_flux_update_kernel` (pallas_call at
 // :281, entry flux_height_update_pallas :253), the tail of updatedz_d: from
@@ -74,64 +80,88 @@ __global__ void __launch_bounds__(kColThreads) heights_kernel(
   }
 }
 
+// updatedz_c_kernel's schedule: threads a block (one column each) and the
+// interfaces a thread walks; by type, the blocks an SM its register budget
+// aims at and the levels unrolled together (float32: 32 registers, all
+// columns in one wave, two levels' loads in flight; float64 keeps 64)
+constexpr int kUzThreads = 256;
+constexpr int kUzLevels = 80;
 template <typename T>
-__global__ void __launch_bounds__(kTileX* kTileY) updatedz_c_kernel(
+struct UzSchedule {
+  static constexpr int blocks = sizeof(T) == 8 ? 4 : 8;
+  static constexpr int unroll = sizeof(T) == 8 ? 1 : 2;
+};
+
+// The new height of one interface of a column at offset o of zh_x / zh_y
+// from its face fluxes (interface averages): both upwind candidates of each
+// face are loaded, then the fluxes' signs pick one.
+template <typename T>
+__device__ __forceinline__ T upwind_height(const T* __restrict__ zx, const T* __restrict__ zy,
+                                           int o, int dw, int de, int ds, int dn, T a, T xw,
+                                           T xe, T ys, T yn, T& zc) {
+  zc = zx[o];
+  const T zwl = zx[o - dw], zer = zx[o + de];
+  const T yc = zy[o], ysl = zy[o - ds], ynr = zy[o + dn];
+  const T zw = xw > T(0) ? zwl : zc;
+  const T ze = xe > T(0) ? zc : zer;
+  const T zs = ys > T(0) ? ysl : yc;
+  const T zn = yn > T(0) ? yc : ynr;
+  const T ra = (a + (xw - xe)) + (ys - yn);
+  return ((zc * a + (zw * xw - ze * xe)) + (zs * ys - zn * yn)) / ra;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kUzThreads, UzSchedule<T>::blocks) updatedz_c_kernel(
     const T* __restrict__ zh_x, const T* __restrict__ zh_y,
     const T* __restrict__ xfx, const T* __restrict__ yfx,
     const T* __restrict__ area, T dt2, T* __restrict__ zh_out,
-    T* __restrict__ ws, int K, int Y, int X) {
-  const int x = blockIdx.x * kTileX + threadIdx.x;
-  const int y = blockIdx.y * kTileY + threadIdx.y;
-  const int s = blockIdx.z;
-  if (x >= X || y >= Y) return;
-  const long long P = (long long)Y * X;
-  const long long Px = (long long)Y * (X + 1);  // an xfx plane
-  const long long Py = (long long)(Y + 1) * X;  // a yfx plane
-  const long long c = (long long)y * X + x;
+    T* __restrict__ ws, int S, int K, int Y, int X) {
+  const int P = Y * X;
+  const long long col = (long long)blockIdx.x * kUzThreads + threadIdx.x;  // s * P + c
+  if (col >= (long long)S * P) return;
+  const int s = (int)(col / P);
+  const int c = (int)(col - (long long)s * P);
+  const int y = c / X;
+  const int x = c - y * X;
+  const int j0 = blockIdx.y * kUzLevels;
+  const int j1 = min(j0 + kUzLevels, K + 1);
   // clamped neighbours: the plain version's edge-replicating pads
-  const long long cw = c - (x > 0 ? 1 : 0);
-  const long long ce = c + (x < X - 1 ? 1 : 0);
-  const long long cs = c - (y > 0 ? X : 0);
-  const long long cn = c + (y < Y - 1 ? X : 0);
-  const T* zx_p = zh_x + (long long)s * (K + 1) * P;
-  const T* zy_p = zh_y + (long long)s * (K + 1) * P;
-  T* out = zh_out + (long long)s * (K + 1) * P;
-  // the four faces of the cell: west, east (xfx), south, north (yfx)
-  const T* fw = xfx + (long long)s * K * Px + (long long)y * (X + 1) + x;
+  const int dw = x > 0 ? 1 : 0, de = x < X - 1 ? 1 : 0;
+  const int ds = y > 0 ? X : 0, dn = y < Y - 1 ? X : 0;
+  const long long base = (long long)s * (K + 1) * P + c;
+  const T* zx = zh_x + base;
+  const T* zy = zh_y + base;
+  T* out = zh_out + base;
+  // the west and south faces of the column's cell in layer 0; the east face
+  // is the next x-face, the north face the next y-face row
+  const int Px = Y * (X + 1), Py = (Y + 1) * X;
+  const T* fw = xfx + (long long)s * K * Px + y * (X + 1) + x;
   const T* fs = yfx + (long long)s * K * Py + c;
-  const T a = area[(long long)s * P + c];
+  const T a = area[col];
 
-  T pw = fw[0], pe = fw[1], ps = fs[0], pn = fs[X];  // layer j-1 (layer 0 at j = 0)
-  for (int j = 0; j <= K; ++j) {
-    T xw, xe, ys, yn;
-    if (j == 0 || j == K) {
-      xw = pw; xe = pe; ys = ps; yn = pn;
-    } else {
-      const long long ox = (long long)j * Px, oy = (long long)j * Py;
-      const T qw = fw[ox], qe = fw[ox + 1], qs = fs[oy], qn = fs[oy + X];
-      xw = T(0.5) * (pw + qw);
-      xe = T(0.5) * (pe + qe);
-      ys = T(0.5) * (ps + qs);
-      yn = T(0.5) * (pn + qn);
-      pw = qw; pe = qe; ps = qs; pn = qn;
-    }
-    const long long o = (long long)j * P;
-    const T zc = zx_p[o + c];
-    const T yc = zy_p[o + c];
-    const T zw = xw > T(0) ? zx_p[o + cw] : zc;
-    const T ze = xe > T(0) ? zc : zx_p[o + ce];
-    const T zs = ys > T(0) ? zy_p[o + cs] : yc;
-    const T zn = yn > T(0) ? yc : zy_p[o + cn];
-    const T ra = (a + (xw - xe)) + (ys - yn);
-    const T zh_new = ((zc * a + (zw * xw - ze * xe)) + (zs * ys - zn * yn)) / ra;
-    if (j == K) {
-      // the bottom interface is pinned to the surface; its advected value
-      // only feeds the terrain-following ws
-      out[o + c] = zc;
-      ws[(long long)s * P + c] = (zh_new - zc) / dt2;
-    } else {
-      out[o + c] = zh_new;
-    }
+  // the layer above the chunk's first interface (layer 0 at the top)
+  const int jp = j0 > 0 ? j0 - 1 : 0;
+  T pw = fw[jp * Px], pe = fw[jp * Px + 1], ps = fs[jp * Py], pn = fs[jp * Py + X];
+  T zc;
+  int j = j0;
+  if (j == 0) {  // the top interface takes layer 0's fluxes
+    out[0] = upwind_height(zx, zy, 0, dw, de, ds, dn, a, pw, pe, ps, pn, zc);
+    j = 1;
+  }
+  const int jm = min(j1, K);
+#pragma unroll(UzSchedule<T>::unroll)
+  for (; j < jm; ++j) {
+    const T qw = fw[j * Px], qe = fw[j * Px + 1], qs = fs[j * Py], qn = fs[j * Py + X];
+    out[j * P] = upwind_height(zx, zy, j * P, dw, de, ds, dn, a, T(0.5) * (pw + qw),
+                               T(0.5) * (pe + qe), T(0.5) * (ps + qs), T(0.5) * (pn + qn), zc);
+    pw = qw; pe = qe; ps = qs; pn = qn;
+  }
+  if (j1 == K + 1) {
+    // the bottom interface takes layer K-1's fluxes and is pinned to the
+    // surface; its advected value only feeds the terrain-following ws
+    const T zh_new = upwind_height(zx, zy, K * P, dw, de, ds, dn, a, pw, pe, ps, pn, zc);
+    out[K * P] = zc;
+    ws[col] = (zh_new - zc) / dt2;
   }
 }
 
@@ -181,11 +211,12 @@ int launch_updatedz_c(const void* zh_x, const void* zh_y, const void* xfx,
                       const void* yfx, const void* area, double dt2,
                       void* zh_out, void* ws, int S, int K, int Y, int X,
                       void* stream) {
-  const dim3 block(kTileX, kTileY);
-  const dim3 grid((X + kTileX - 1) / kTileX, (Y + kTileY - 1) / kTileY, S);
-  updatedz_c_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+  const long long cols = (long long)S * Y * X;
+  const dim3 grid((unsigned)((cols + kUzThreads - 1) / kUzThreads),
+                  (unsigned)((K + kUzLevels) / kUzLevels));  // chunks of K + 1 interfaces
+  updatedz_c_kernel<T><<<grid, kUzThreads, 0, (cudaStream_t)stream>>>(
       (const T*)zh_x, (const T*)zh_y, (const T*)xfx, (const T*)yfx,
-      (const T*)area, (T)dt2, (T*)zh_out, (T*)ws, K, Y, X);
+      (const T*)area, (T)dt2, (T*)zh_out, (T*)ws, S, K, Y, X);
   return (int)cudaGetLastError();
 }
 

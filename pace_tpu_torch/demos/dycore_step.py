@@ -99,11 +99,13 @@ def run(n: int = 192, npz: int = 79, warm: int = 1, steps: int = 2, device="cuda
     """Take ``warm`` untimed and ``steps`` timed steps from the case's state
     (``case`` or a new one). Returns the case with its advanced state, the
     wall ms of each timed step, their mean, the metric, and the tracer
-    sub-cycles of each outer step, one list per step taken."""
+    sub-cycles and (with ``consv_te > 0``; read after the step's timing)
+    the energy fixer's increments [K] of each outer step, one list per step
+    taken."""
     case = case or build_case(n, npz, device, dtype, **overrides)
     dev = case.state.u.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    step_ms, subcycles = [], []
+    step_ms, subcycles, energy_dT = [], [], []
     for r in range(warm + steps):
         sync()
         t0 = time.perf_counter()
@@ -112,12 +114,13 @@ def run(n: int = 192, npz: int = 79, warm: int = 1, steps: int = 2, device="cuda
         if r >= warm:
             step_ms.append(1e3 * (time.perf_counter() - t0))
         subcycles.append(list(case.core.tracer_subcycles))
+        energy_dT.append([float(t) for t in case.core.energy_fix_dT])
     ms = sum(step_ms) / len(step_ms)
     points = 6 * case.n * case.n * case.core.config.npz
     return {
         "case": case, "step_ms": step_ms, "ms_per_step": ms,
         "gridpoints_per_s": points / (ms / 1e3),
-        "tracer_subcycles": subcycles,
+        "tracer_subcycles": subcycles, "energy_fix_dT": energy_dT,
     }
 
 

@@ -12,6 +12,7 @@ tensors of each outer step are released when it ends.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List
 
 import torch
@@ -19,8 +20,14 @@ import torch
 from ... import constants
 from ...ops.d2a2c import d2a2c_vect
 from ...ops.d_sw import DSWConfig
-from ...ops.dycore_extras import apply_sponge, neg_adj3, ray_fast
-from ...ops.moist_cv import compute_q_con
+from ...ops.dycore_extras import (
+    apply_sponge,
+    global_energy_fix_increment,
+    neg_adj3,
+    ray_fast,
+    total_energy_columns,
+)
+from ...ops.moist_cv import compute_q_con, moist_cv
 from ...ops.remapping import pe_at_u_points, pe_at_v_points, remap_field_best, remap_tracers
 from ...ops.stencil_utils import scalar_like
 from ...ops.tracer_advection import advect_tracers, subcycle_count
@@ -32,9 +39,8 @@ from .state import DycoreState
 class DynamicalCoreConfig:
     """The dycore namelist subset of ``pace_tpu``'s ``DynamicalCoreConfig``,
     every field and default. Values it does not implement are refused in
-    ``__post_init__`` as there; :class:`DynamicalCore` refuses the ones whose
-    operators the port has not taken yet (``consv_te > 0``,
-    ``do_sat_adj``)."""
+    ``__post_init__`` as there; :class:`DynamicalCore` refuses the one whose
+    operators the port has not taken yet (``do_sat_adj``)."""
 
     npz: int = 79
     k_split: int = 1
@@ -151,6 +157,15 @@ def _interfaces(delp, ptop: float):
     return torch.cat([torch.full_like(below[..., :1, :, :], ptop), below], dim=-3)
 
 
+def _lagrangian_pkz(delp, ptop: float):
+    """The layer-mean Exner function of the Lagrangian surfaces before the
+    remap, from their log pressures (the ``consv_te`` fixer's te1)."""
+    peln = torch.log(_interfaces(delp, ptop))
+    pk = torch.exp(constants.KAPPA * (peln - math.log(constants.P_REF)))
+    return (pk[..., 1:, :, :] - pk[..., :-1, :, :]) / (
+        constants.KAPPA * (peln[..., 1:, :, :] - peln[..., :-1, :, :]))
+
+
 class DynamicalCore:
     """One dycore step over the stacked-shard state, on the device of the
     grid's tensors.
@@ -160,30 +175,29 @@ class DynamicalCore:
         core = DynamicalCore(grid_data, halo, config, dt_atmos)
         state = core.step_dynamics(state)
 
-    ``consv_te > 0`` and ``do_sat_adj`` (ROADMAP queue 1 item 9) and a stage
-    ``checkpointer`` (item 11) are not ported and raise
-    ``NotImplementedError`` here, rather than being skipped by the step.
+    ``do_sat_adj`` (ROADMAP queue 1 item 4) and a stage ``checkpointer``
+    (item 6) are not ported and raise ``NotImplementedError`` here, rather
+    than being skipped by the step.
     """
 
     def __init__(self, grid, halo, config: DynamicalCoreConfig, timestep: float,
                  checkpointer=None):
-        if config.consv_te > 0.0:
-            raise NotImplementedError(
-                "consv_te > 0: the total-energy fixer (total_energy_columns, "
-                "global_energy_fix_increment) is not ported yet (ROADMAP queue 1 item 9)")
         if config.do_sat_adj:
             raise NotImplementedError(
                 "do_sat_adj: the fast saturation adjustment is not ported yet "
-                "(ROADMAP queue 1 item 9)")
+                "(ROADMAP queue 1 item 4)")
         if checkpointer is not None:
             raise NotImplementedError(
-                "stage checkpointers are not ported yet (ROADMAP queue 1 item 11)")
+                "stage checkpointers are not ported yet (ROADMAP queue 1 item 6)")
         self.grid = grid
         self.halo = halo
         self.config = config
         self.timestep = float(timestep)
         #: tracer sub-cycles of each outer step of the last call
         self.tracer_subcycles: List[int] = []
+        #: with consv_te > 0, the energy fixer's increment [K] of each outer
+        #: step of the last call (0-dim tensors on the state's device)
+        self.energy_fix_dT: List[torch.Tensor] = []
 
     def step_dynamics(self, state: DycoreState) -> DycoreState:
         """The state after one step of ``timestep`` seconds; the input state
@@ -196,6 +210,7 @@ class DynamicalCore:
             w = None
             delz = None
         self.tracer_subcycles = []
+        self.energy_fix_dT = []
         diss_acc = None
         for _ in range(cfg.k_split):
             u, v, w, delp, pt, q, delz, aux = self._k_split_body(
@@ -252,11 +267,24 @@ class DynamicalCore:
         # vertical remap back to the hybrid reference coordinate; the
         # Eulerian mid-level pressures at the interval start (from the
         # pre-acoustic delp) give the omga = Dp/Dt diagnostic
+        if cfg.consv_te > 0.0:
+            te1 = total_energy_columns(u, v, w, delp, pt, _lagrangian_pkz(delp, grid.ptop), phis)
         pe0 = _interfaces(delp0, grid.ptop)
         pe_old_mid = 0.5 * (pe0[..., 1:, :, :] + pe0[..., :-1, :, :])
         del pe0, delp0
         u, v, w, delz, delp, pt, q, pe, pkz, omga = self._remap(
             u, v, w, delz, delp, pt, q, pe_old_mid=pe_old_mid, mdt=dt_k)
+        if cfg.consv_te > 0.0:
+            # the global total-energy fixer: the remap's energy change over
+            # the whole cube, returned as one uniform heating, weighted by
+            # the moist heat capacity
+            te2 = total_energy_columns(u, v, w, delp, pt, pkz, phis)
+            cvm, _q_con = moist_cv(q, cfg.nwat)
+            dT = global_energy_fix_increment(te1, te2, cvm, delp, grid.area, grid.n_halo,
+                                             cfg.consv_te)
+            del te1, te2, cvm, _q_con
+            pt = pt + dT / pkz
+            self.energy_fix_dT.append(dT)
 
         # the fv_dynamics tail: sponge, slow Rayleigh damping, fill
         if cfg.n_sponge > 0 and cfg.d_ext > 0.0:

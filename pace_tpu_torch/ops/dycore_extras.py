@@ -1,11 +1,13 @@
 """Dycore auxiliary operators: sponge-layer diffusion, fast Rayleigh damping,
-negative-tracer adjustment.
+negative-tracer adjustment, the total-energy fixer.
 
-Port of the first part of ``pace_tpu.ops.dycore_extras`` (reference roles:
-``pyFV3.stencils.{del2cubed, ray_fast, neg_adj3, fillz}``: upper-atmosphere
-sponge-layer Laplacian damping (n_sponge, d_ext); Rayleigh damping of u, v, w
-above rf_cutoff; filling of negative tracers). Plain PyTorch throughout, as
-``pace_tpu`` leaves them to XLA; ``fillz``'s column scans are loops over k.
+Port of ``pace_tpu.ops.dycore_extras`` but its saturation adjustment and
+cloud fraction (reference roles: ``pyFV3.stencils.{del2cubed, ray_fast,
+neg_adj3, fillz}``: upper-atmosphere sponge-layer Laplacian damping
+(n_sponge, d_ext); Rayleigh damping of u, v, w above rf_cutoff; filling of
+negative tracers; and the ``consv_te`` global energy fixer of the Remapping
+stage). Plain PyTorch throughout, as ``pace_tpu`` leaves them to XLA;
+``fillz``'s column scans are loops over k.
 """
 
 from __future__ import annotations
@@ -175,3 +177,36 @@ def neg_adj3(q, delp, pt=None, pkz=None, nwat: int = 6):
     if t_abs is not None:
         pt = t_abs * (1.0 + constants.ZVIR * q[:, iv]) / pkz
     return q, pt
+
+
+def global_energy_fix_increment(te1, te2, cvm, delp, area, n_halo: int, consv: float):
+    """The globally uniform temperature increment [K] that restores the
+    remap's loss of total energy (``consv_te``; a global-integral fixer in
+    the Remapping stage, not a per-column closure):
+
+        dT = consv * sum((te1 - te2) area) / sum(sum_k(cvm delp) area)
+
+    Both sums run over every shard's compute domain (each cell of the cube
+    once); on one device that is a sum over the stacked shards. Returns a
+    0-dim tensor on the operands' device (no host sync), to be applied as
+    ``pt += dT / pkz``."""
+    sl = (..., slice(n_halo, -n_halo), slice(n_halo, -n_halo))
+    w_area = area[sl]
+    dte = torch.sum((te1 - te2)[sl] * w_area)
+    denom = torch.sum(torch.sum(cvm * delp, dim=-3)[sl] * w_area)
+    return consv * dte / denom
+
+
+def total_energy_columns(u, v, w, delp, pt, pkz, phis):
+    """Column-integrated total energy [J/m^2 / g]: internal, kinetic (winds
+    averaged to cell centers; ``w`` left out where it is None) and potential
+    (the surface geopotential times the column mass). The ``consv_te``
+    fixer's te1 and te2."""
+    t = pt * pkz  # virtual temperature (the moisture factor cancels in te1 - te2)
+    u_c = 0.5 * (u[..., :-1, :] + u[..., 1:, :])
+    v_c = 0.5 * (v[..., :, :-1] + v[..., :, 1:])
+    ke = 0.5 * (u_c**2 + v_c**2)
+    if w is not None:
+        ke = ke + 0.5 * w**2
+    e = delp * (constants.CV_AIR * t + ke)
+    return torch.sum(e, dim=-3) + phis * torch.sum(delp, dim=-3)

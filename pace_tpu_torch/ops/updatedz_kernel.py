@@ -68,6 +68,8 @@ def updatedz_c_cuda(zh_x, zh_y, xfx_l, yfx_l, area, dt2: float):
     K = K1 - 1
     if K < 1:
         raise ValueError("updatedz_c kernel needs at least one layer")
+    if K1 * (Y + 1) * (X + 1) >= 2**31:
+        raise ValueError(f"updatedz_c kernel: a column's {K1} x {Y} x {X} offsets beyond 32 bits")
     check_operands(
         "updatedz_c kernel",
         [("zh_x", zh_x, (S, K1, Y, X)), ("zh_y", zh_y, (S, K1, Y, X)),

@@ -160,16 +160,14 @@ def test_config_refuses_what_pace_tpu_refuses(bad):
         dycore.DynamicalCoreConfig(**bad)
 
 
-@pytest.mark.parametrize("what", ["consv_te", "do_sat_adj", "checkpointer"])
+@pytest.mark.parametrize("what", ["do_sat_adj", "checkpointer"])
 def test_unported_options_raise(steps, what):
     cfg, kw = dycore.DynamicalCoreConfig(), {}
-    if what == "consv_te":
-        cfg = dycore.DynamicalCoreConfig(consv_te=1.0)
-    elif what == "do_sat_adj":
+    if what == "do_sat_adj":
         cfg = dycore.DynamicalCoreConfig(do_sat_adj=True)
     else:
         kw["checkpointer"] = lambda *a, **k: None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item (9|11)"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item (4|6)"):
         dycore.DynamicalCore(steps["tgrid"], None, cfg, 200.0, **kw)
 
 

@@ -1,7 +1,8 @@
 """The sim1, multi-field transport, tracer-block transport, single-field
-transport, D-grid tail and C-grid tail kernels' CUDA sources, built for the
-CPU by ``tools/cuda_cpu_emulation.py`` and held against the plain versions,
-the single-field kernel and earlier designs.
+transport, D-grid tail, C-grid tail, d2a2c, hydrostatic-chain and
+updatedz_c kernels' CUDA sources, built for the CPU by
+``tools/cuda_cpu_emulation.py`` and held against the plain versions, the
+single-field kernel and earlier designs.
 
 The card is not here; the emulation runs the kernels' own index arithmetic,
 tiling, shared-memory passes and barriers on CPU tensors (see the tool's
@@ -31,7 +32,10 @@ the plain version on the consumed region and to the design it replaced
 tail: at C12, over a plane that holds cube corners and ten levels, equal to
 the plain version (without the corner dedup, which the kernels skip) away
 from the cube corners, and to its earlier tiling (700a797) on the whole
-plane.
+plane. updatedz_c: at 80, 79 and 2 layers on the main path's 198 x 198
+plane and on a 5 x 37 plane, in float32 and float64, equal to the plain
+version outside the outer ring and to the design before its redesign
+(551ed44) on the whole plane.
 """
 
 import ctypes
@@ -69,7 +73,7 @@ def libs(tmp_path_factory):
         pytest.skip("g++ is needed to build the CPU emulation")
     out = tmp_path_factory.mktemp("emu")
     libs = {}
-    for name in ("sim1", "fvtp2d", "d_sw_tail", "c_sw_tail", "d2a2c", "hydro"):
+    for name in ("sim1", "fvtp2d", "d_sw_tail", "c_sw_tail", "d2a2c", "hydro", "updatedz"):
         path = cuda_cpu_emulation.build(ROOT / "pace_tpu_torch" / "csrc" / f"{name}.cu",
                                         out / f"lib{name}.so")
         libs[name] = ctypes.CDLL(str(path))
@@ -82,6 +86,7 @@ def libs(tmp_path_factory):
     _fvtp2d_argtypes(libs["fvtp2d"])
     _d2a2c_argtypes(libs["d2a2c"])
     _hydro_argtypes(libs["hydro"])
+    _updatedz_c_argtypes(libs["updatedz"])
     return libs
 
 
@@ -680,10 +685,79 @@ def test_hydro_kernel_source_equals_the_earlier_design(libs, earlier_hydro, K, d
         assert torch.equal(got[name], ref[name]), (name, int((got[name] != ref[name]).sum()))
 
 
+# ------------------------------------------------------------- updatedz_c
+
+#: layers (80 and 79: two chunks of interfaces a column, the second holding
+#: the bottom interface alone, and the main path's one chunk; 2) by plane
+#: (198 x 198, the main path's, S = 1; 5 x 37, S = 2: no multiple of a block)
+UZ_CASES = [(K, plane, d) for K in (80, 79, 2) for plane in ((1, 198, 198), (2, 5, 37))
+            for d in (torch.float32, torch.float64)]
+UZ_IDS = [f"K{K}-{plane[1]}x{plane[2]}-{_suffix(d)}" for K, plane, d in UZ_CASES]
+
+
+def _updatedz_c_argtypes(lib):
+    for f in ("pace_updatedz_c_f32", "pace_updatedz_c_f64"):
+        fn = getattr(lib, f)
+        fn.argtypes, fn.restype = [P_] * 5 + [D, P_, P_] + [I] * 4 + [P_], I
+
+
+def _updatedz_c_operands(K, plane, dtype):
+    """Interface heights decreasing downward (both folds), layer area fluxes
+    of both signs and cell areas, from a seed."""
+    S, Y, X = plane
+    rng = np.random.default_rng(K + Y)
+    zh = 100.0 * np.cumsum(rng.random((S, K + 1, Y, X))[:, ::-1], axis=1)[:, ::-1]
+    arrays = (zh, zh + rng.standard_normal(zh.shape), 1e3 * rng.standard_normal((S, K, Y, X + 1)),
+              1e3 * rng.standard_normal((S, K, Y + 1, X)), 1e4 + 1e3 * rng.random((S, Y, X)))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dtype) for a in arrays]
+
+
+def _updatedz_c(lib, args, dt2):
+    """``(zh_new, ws)`` of the source in ``lib``; NaN where it writes nothing."""
+    zh_x = args[0]
+    S, K1, Y, X = zh_x.shape
+    out = torch.full_like(zh_x, float("nan"))
+    ws = torch.full((S, Y, X), float("nan"), dtype=zh_x.dtype)
+    rc = getattr(lib, "pace_updatedz_c_" + _suffix(zh_x.dtype))(
+        *(t.data_ptr() for t in args), dt2, out.data_ptr(), ws.data_ptr(), S, K1 - 1, Y, X, None)
+    assert rc == 0
+    return out, ws
+
+
+@pytest.mark.parametrize("K,plane,dtype", UZ_CASES, ids=UZ_IDS)
+def test_updatedz_c_kernel_source_matches_the_plain_version(libs, K, plane, dtype):
+    """Bit-identical outside the outer ring, the region chip_smoke.py gates
+    (the outermost ring is unspecified)."""
+    args = _updatedz_c_operands(K, plane, dtype)
+    got = _updatedz_c(libs["updatedz"], args, 3.5)
+    plain = nonhydro.updatedz_c_plain(*args, 3.5)
+    for name, a, b in zip(("zh", "ws"), got, plain):
+        a, b = a[..., 1:-1, 1:-1], b[..., 1:-1, 1:-1]
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.fixture(scope="module")
+def earlier_updatedz(libs, tmp_path_factory):
+    """updatedz.cu before updatedz_c's redesign (551ed44)."""
+    lib = _earlier_source(tmp_path_factory, "551ed44", "updatedz")
+    _updatedz_c_argtypes(lib)
+    return lib
+
+
+@pytest.mark.parametrize("K,plane,dtype", UZ_CASES, ids=UZ_IDS)
+def test_updatedz_c_kernel_source_equals_the_earlier_design(libs, earlier_updatedz, K, plane,
+                                                           dtype):
+    args = _updatedz_c_operands(K, plane, dtype)
+    got = _updatedz_c(libs["updatedz"], args, 3.5)
+    ref = _updatedz_c(earlier_updatedz, args, 3.5)
+    for name, a, b in zip(("zh", "ws"), got, ref):  # every point written and equal
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
 # ------------------------------------------ the tuning candidates' tables
 
 @pytest.mark.parametrize("name", ["sim1", "fvtp2d", "tracer", "d_sw_tail", "single",
-                                  "c_sw_tail", "d2a2c", "hydro"])
+                                  "c_sw_tail", "d2a2c", "hydro", "updatedz_c"])
 def test_variant_candidates_apply_to_the_current_sources(name):
     """Every candidate and diagnostic of tools/torch_kernel_variants.py
     finds its text in the current source and changes it (the tool raises
@@ -694,3 +768,18 @@ def test_variant_candidates_apply_to_the_current_sources(name):
            ).read_text()
     texts = torch_kernel_variants.candidate_sources(name)
     assert texts and all(text != src for text in texts.values())
+
+
+def test_earlier_updatedz_c_diagnostics_apply_to_its_source(tmp_path):
+    """tools/torch_kernel_variants.py's EARLIER diagnostics of updatedz_c
+    find their texts in 551ed44's source (``--prev`` raises otherwise)."""
+    import torch_kernel_variants
+
+    git = shutil.which("git")
+    res = (subprocess.run([git, "-C", str(ROOT), "show", "551ed44:pace_tpu_torch/csrc/updatedz.cu"],
+                          capture_output=True, text=True) if git else None)
+    if res is None or res.returncode != 0:
+        pytest.skip("the checkout's history does not hold updatedz.cu of 551ed44")
+    (tmp_path / "updatedz.cu").write_text(res.stdout)
+    texts = torch_kernel_variants.earlier_sources("updatedz_c", tmp_path)
+    assert len(texts) == 3 and sum(text == res.stdout for text in texts.values()) == 1

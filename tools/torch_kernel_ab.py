@@ -1,25 +1,25 @@
 #!/usr/bin/env python3
 """Time an earlier revision's remap, nh_p_grad, sim1, multi-field transport,
 tracer-block transport, single-field transport, D-grid tail, C-grid tail,
-d2a2c and hydrostatic-chain kernels against the current ones on one NVIDIA card, in turns, at the dycore
-step's shapes.
+d2a2c, hydrostatic-chain and updatedz_c kernels against the current ones on
+one NVIDIA card, in turns, at the dycore step's shapes.
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
     mkdir -p build/prev
-    for f in remap pgrad sim1 fvtp2d d_sw_tail c_sw_tail d2a2c hydro; do
+    for f in remap pgrad sim1 fvtp2d d_sw_tail c_sw_tail d2a2c hydro updatedz; do
         git show <rev>:pace_tpu_torch/csrc/$f.cu > build/prev/$f.cu
     done
     python3 tools/torch_kernel_ab.py --prev build/prev [--kernels d2a2c,hydro]
 
 ``--kernels`` picks from ``remap, pgrad, sim1, fvtp2d, tracer, single,
-d_sw_tail, c_sw_tail, d2a2c, hydro, halo`` (default all); the earlier directory needs the
-sources of the kernels picked (``fvtp2d.cu`` for ``fvtp2d``, ``tracer`` and
-``single``). The earlier sources must export the C functions the current
+d_sw_tail, c_sw_tail, d2a2c, hydro, updatedz_c, halo`` (default all); the
+earlier directory needs the sources of the kernels picked (``fvtp2d.cu`` for
+``fvtp2d``, ``tracer`` and ``single``, ``updatedz.cu`` for ``updatedz_c``). The earlier sources must export the C functions the current
 wrappers call (``pace_remap_f32`` ..., ``pace_pgrad_f32`` ...,
 ``pace_sim1_f32`` ..., ``pace_fvtp2d_f32`` ..., ``pace_fvtp2d_multi_f32``
 ..., ``pace_d_sw_tail_f32`` ..., ``pace_c_sw_tail_f32`` ..., ``pace_d2a2c_f32``
-..., ``pace_hydro_f32`` ...) with the
+..., ``pace_hydro_f32`` ..., ``pace_updatedz_c_f32`` ...) with the
 current arguments; the earlier tracer block is the earlier
 ``pace_fvtp2d_f32`` / ``_f64`` with NQ tracers (the design before the tracer
 kernel: one block per tracer), the current one ``pace_fvtp2d_tracer_f32`` /
@@ -51,7 +51,10 @@ D-grid winds of the baroclinic-wave state after their exchange, the
 hydrostatic chain one C-grid tail's delpc and ptc in each form a step
 launches (``chip_smoke.HYDRO_FORMS``: pkz, pk and pkz, pk, pkz and gz); both
 in float32 (timed) and float64 (the bits, 5 launches, d2a2c with a float64
-copy of the grid).
+copy of the grid). updatedz_c takes one nonhydrostatic C-grid half step's
+interface heights (both folds) and c_sw's layer area fluxes, as
+``chip_smoke.py`` builds them, timed in float32 and float64 (20 launches
+each).
 
 With ``halo`` picked, the halo exchange plan that launches most often in one
 dycore step (``demos/dycore_step``, with a seeded tracer block): launches
@@ -86,12 +89,12 @@ time_ms = chip_smoke.time_ms
 nbytes = chip_smoke.nbytes
 
 KERNELS = ("remap", "pgrad", "sim1", "fvtp2d", "tracer", "single", "d_sw_tail", "c_sw_tail",
-           "d2a2c", "hydro")
+           "d2a2c", "hydro", "updatedz_c")
 #: the hydrostatic chain's forms a step launches
 HYDRO_FORMS = chip_smoke.HYDRO_FORMS
 #: the kernel library each pick builds (the tracer and single-field kernels
-#: live in fvtp2d.cu)
-LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d"}
+#: live in fvtp2d.cu, updatedz_c in updatedz.cu)
+LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d", "updatedz_c": "updatedz"}
 
 
 def build_prev(prev_dir: str, names):
@@ -364,6 +367,35 @@ def hydro_operands(n, npz, dev):
     return delpc, ptc, phis, args[14].ptop
 
 
+def updatedz_c_operands(n, npz, dev):
+    """updatedz_c's arguments after one nonhydrostatic C-grid half step from
+    the baroclinic-wave state, as chip_smoke.py builds them: ``(zh_x, zh_y,
+    xfx, yfx, area, dt2)``."""
+    from pace_tpu_torch.demos import cgrid_half_step as cdemo
+
+    ncase = cdemo.build_case(n, npz, device=dev, dtype=torch.float32, hydrostatic=False)
+    nhalf = cdemo.step(ncase)
+    return nhalf.zh_x, nhalf.zh_y, nhalf.cg.xfx, nhalf.cg.yfx, ncase.grid.area, ncase.dt2
+
+
+def updatedz_c(libs, n, npz, dev):
+    """updatedz_c, earlier against current, in float32 and float64 (both
+    timed, 20 launches)."""
+    from pace_tpu_torch.ops import updatedz_kernel as uzk
+
+    u_args = updatedz_c_operands(n, npz, dev)
+    dt2 = u_args[5]
+    ok = True
+    for dtype in (torch.float32, torch.float64):
+        a = [t.to(dtype).contiguous() for t in u_args[:5]]
+        outs = uzk.updatedz_c_cuda(*a, dt2)
+        ok &= in_turns(f"updatedz_c {tuple(a[0].shape)} {str(dtype)[6:]}", libs["updatedz"],
+                       "updatedz", lambda: uzk.updatedz_c_cuda(*a, dt2), 20, nbytes(*a, *outs))
+        del a, outs
+        torch.cuda.empty_cache()
+    return ok
+
+
 def d2a2c(libs, n, npz, dev):
     """d2a2c, earlier against current, in float32 (timed, 20 launches) and
     float64 (the bits, 5, with a float64 copy of the grid)."""
@@ -605,10 +637,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--prev", required=True,
                     help="directory of the earlier sources (remap.cu, pgrad.cu, sim1.cu, "
-                         "fvtp2d.cu, d_sw_tail.cu, c_sw_tail.cu, d2a2c.cu, hydro.cu)")
+                         "fvtp2d.cu, d_sw_tail.cu, c_sw_tail.cu, d2a2c.cu, hydro.cu, "
+                         "updatedz.cu)")
     ap.add_argument("--kernels", default=",".join(KERNELS + ("halo",)),
                     help="comma-separated: remap, pgrad, sim1, fvtp2d, tracer, single, "
-                         "d_sw_tail, c_sw_tail, d2a2c, hydro, halo (default all)")
+                         "d_sw_tail, c_sw_tail, d2a2c, hydro, updatedz_c, halo (default all)")
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--npz", type=int, default=79)
     args = ap.parse_args()
@@ -643,6 +676,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "hydro" in picked:
         ok &= hydro(libs, args.n, args.npz, dev)
+        torch.cuda.empty_cache()
+    if "updatedz_c" in picked:
+        ok &= updatedz_c(libs, args.n, args.npz, dev)
         torch.cuda.empty_cache()
     libs = {k: v for k, v in libs.items() if k in picked}
     ok &= sim1_and_multi(libs, args.n, args.npz, dev)

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Time the tuning candidates of the sim1, multi-field transport,
 tracer-block transport, single-field transport, D-grid tail, C-grid tail,
-d2a2c and hydrostatic-chain kernels on one NVIDIA card, at the dycore step's
-shapes.
+d2a2c, hydrostatic-chain and updatedz_c kernels on one NVIDIA card, at the
+dycore step's shapes.
 
 Each candidate is the current source (``pace_tpu_torch/csrc/sim1.cu``,
-``fvtp2d.cu``, ``d_sw_tail.cu``, ``c_sw_tail.cu``, ``d2a2c.cu`` or
-``hydro.cu``) with one or more of its
+``fvtp2d.cu``, ``d_sw_tail.cu``, ``c_sw_tail.cu``, ``d2a2c.cu``,
+``hydro.cu`` or ``updatedz.cu``) with one or more of its
 tuning constants changed (``CANDIDATES`` below: tile width and blocks an SM
 for sim1; segment lengths, blocks an SM, the tile and, for the single-field
 kernel, levels a block, level buffers or the tracer kernel in its place for
 the transports; tile shape, levels a block, threads and blocks an SM for the
 tails; tile, levels a block and levels a step for d2a2c; threads a block,
-levels a copy, registers and unrolling for hydro), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
+levels a copy, registers and unrolling for hydro; threads a block, levels a
+thread, registers and unrolling for updatedz_c), built with ``_build.NVCC_FLAGS`` into ``build/kernels/variants``
 (gitignored), and run through the current wrapper on the inputs of
 ``tools/torch_kernel_ab.py`` (C192 npz=79 f32: sim1 on one nonhydrostatic
 C-grid half step's operands, the multi-field transport on d_sw's pt /
@@ -21,17 +22,22 @@ single-field transport on the substep's delp call (corner pack, K = 79) and
 heights call (full qy, K = 80), the D-grid tail on the benchmark's nord 3
 case, the C-grid tail on one C-grid half step's operands, d2a2c on the
 exchanged winds of the baroclinic-wave state, hydro on one C-grid tail's
-delpc and ptc in each form a step launches). Two rounds of
+delpc and ptc in each form a step launches, updatedz_c on one
+nonhydrostatic C-grid half step's heights and area fluxes). Two rounds of
 CUDA-event means of 20 launches (the tracer block 5), the current build first
 in each, and whether each candidate gives the current build's bits. Run from
 the repository root on a machine with a card and ``nvcc``::
 
-    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,single,d_sw_tail,c_sw_tail,d2a2c,hydro]
+    python3 tools/torch_kernel_variants.py [--kernels sim1,fvtp2d,tracer,single,d_sw_tail,c_sw_tail,d2a2c,hydro,updatedz_c] [--prev DIR]
 
 Prints ``[build]`` lines (registers and spills), ``[variant]`` lines and the
 card's name and power limit. ``DIAGNOSTICS`` adds builds that leave a part of
-a kernel out, to time the rest (their bits differ). A candidate whose text
-is not in the source raises: the tables follow the source.
+a kernel out, to time the rest (their bits differ). With ``--prev DIR`` (a
+directory of earlier sources, as for ``tools/torch_kernel_ab.py``), the
+earlier source of each picked kernel that ``EARLIER`` lists is built as it
+is and with each of its diagnostics, and timed in the same rounds. A
+candidate whose text is not in the source raises: the tables follow the
+source.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import ctypes
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -86,6 +93,20 @@ _HYDRO_BLOCKS = "return sizeof(T) == 8 ? 8 : 16;"
 _HYDRO_UNROLL = "#pragma unroll 2\n    for (int j = 0; j < n; ++j) {"
 _HYDRO_LOG = "float vlog<float>(float x) { return logf(x); }"
 _HYDRO_POW = "float vpow<float>(float x, float y) { return powf(x, y); }"
+_UZ_THREADS = "constexpr int kUzThreads = 256;"
+_UZ_LEVELS = "constexpr int kUzLevels = 80;"
+_UZ_BLOCKS = "static constexpr int blocks = sizeof(T) == 8 ? 4 : 8;"
+_UZ_UNROLL = "static constexpr int unroll = sizeof(T) == 8 ? 1 : 2;"
+_UZ_MATH = ("  const T zw = xw > T(0) ? zwl : zc;\n  const T ze = xe > T(0) ? zc : zer;\n"
+            "  const T zs = ys > T(0) ? ysl : yc;\n  const T zn = yn > T(0) ? yc : ynr;\n"
+            "  const T ra = (a + (xw - xe)) + (ys - yn);\n"
+            "  return ((zc * a + (zw * xw - ze * xe)) + (zs * ys - zn * yn)) / ra;")
+_UZ_HEIGHTS = ("  zc = zx[o];\n  const T zwl = zx[o - dw], zer = zx[o + de];\n"
+               "  const T yc = zy[o], ysl = zy[o - ds], ynr = zy[o + dn];")
+_UZ_FLUXES = "    const T qw = fw[j * Px], qe = fw[j * Px + 1], qs = fs[j * Py], qn = fs[j * Py + X];"
+#: the flux loads of a level replaced by arithmetic on the carried fluxes
+_UZ_FLUXES_MATH = ("    const T qw = pw * T(1.5) - a, qe = pe * T(0.5) + a, qs = ps - T(j), "
+                   "qn = pn + T(j);")
 _HYDRO_DIVS = [("pe / p_ref, kappa);\n      const long long o", "pe * p_ref, kappa);\n      const long long o"),
                ("= (pk_n - pk) / (kappa", "= (pk_n - pk) * (kappa")]
 
@@ -142,6 +163,13 @@ def _hydro(threads=128, chunk=4, blocks=16):
     return [(_HYDRO_THREADS, f"constexpr int kThreads = {threads};"),
             (_HYDRO_CHUNK, f"constexpr int kChunk = {chunk};"),
             (_HYDRO_BLOCKS, f"return sizeof(T) == 8 ? 8 : {blocks};")]
+
+
+def _updatedz_c(threads=256, levels=80, blocks=8, unroll=2, blocks64=4, unroll64=1):
+    return [(_UZ_THREADS, f"constexpr int kUzThreads = {threads};"),
+            (_UZ_LEVELS, f"constexpr int kUzLevels = {levels};"),
+            (_UZ_BLOCKS, f"static constexpr int blocks = sizeof(T) == 8 ? {blocks64} : {blocks};"),
+            (_UZ_UNROLL, f"static constexpr int unroll = sizeof(T) == 8 ? {unroll64} : {unroll};")]
 
 
 def _tail(ty, tx, levels, blocks, threads=256):
@@ -221,6 +249,47 @@ DIAGNOSTICS = {
         "formula: pe times the reciprocal of p_ref": [
             ("      const T pk_n = vpow<T>(pe / p_ref, kappa);",
              "      const T pk_n = vpow<T>(pe * (T(1) / p_ref), kappa);")],
+    },
+    # updatedz_c: its loads and stores with nine additions in place of the
+    # selects, the products and the division; its arithmetic and stores with
+    # every height and (after the first) flux load replaced by arithmetic
+    "updatedz_c": {
+        "diagnostic: loads and stores alone": [
+            (_UZ_MATH, "  return ((zc + zwl) + (zer + yc)) + ((ysl + ynr) + ((xw + xe) + (ys + yn)));")],
+        "diagnostic: math alone (no loads)": [
+            (_UZ_HEIGHTS, "  zc = a * T(o);\n  const T zwl = zc + T(dw), zer = zc - T(de);\n"
+                          "  const T yc = zc * T(2), ysl = yc + T(ds), ynr = yc - T(dn);"),
+            (_UZ_FLUXES, _UZ_FLUXES_MATH)],
+    },
+}
+
+_UZ_EARLIER_MATH = ("    const T ra = (a + (xw - xe)) + (ys - yn);\n"
+                    "    const T zh_new = ((zc * a + (zw * xw - ze * xe)) + (zs * ys - zn * yn)) / ra;")
+_UZ_EARLIER_FLUXES = "      const T qw = fw[ox], qe = fw[ox + 1], qs = fs[oy], qn = fs[oy + X];"
+_UZ_EARLIER_HEIGHTS = ("    const T zc = zx_p[o + c];\n    const T yc = zy_p[o + c];\n"
+                       "    const T zw = xw > T(0) ? zx_p[o + cw] : zc;\n"
+                       "    const T ze = xe > T(0) ? zc : zx_p[o + ce];\n"
+                       "    const T zs = ys > T(0) ? zy_p[o + cs] : yc;\n"
+                       "    const T zn = yn > T(0) ? yc : zy_p[o + cn];")
+
+#: earlier sources timed beside the candidates with ``--prev``: name -> the
+#: earlier design's own diagnostics (551ed44's updatedz_c: its loads, the
+#: upwind heights still under the fluxes' signs, and stores with five
+#: additions in place of the arithmetic; its arithmetic and stores with no
+#: load after the first layer's fluxes)
+EARLIER = {
+    "updatedz_c": {
+        "the earlier design": [],
+        "the earlier design, diagnostic: loads and stores alone": [
+            (_UZ_EARLIER_MATH, "    const T zh_new = ((zc + zw) + (ze + yc)) + (zs + zn);")],
+        "the earlier design, diagnostic: math alone (no loads)": [
+            (_UZ_EARLIER_FLUXES, "      const T qw = pw * T(1.5) - a, qe = pe * T(0.5) + a, "
+                                 "qs = ps - T(j), qn = pn + T(j);\n      (void)ox;\n      (void)oy;"),
+            (_UZ_EARLIER_HEIGHTS, "    const T zc = a * T(o + c);\n    const T yc = zc * T(2);\n"
+                                  "    const T zw = xw > T(0) ? zc + T(cw) : zc;\n"
+                                  "    const T ze = xe > T(0) ? zc : zc - T(ce);\n"
+                                  "    const T zs = ys > T(0) ? yc + T(cs) : yc;\n"
+                                  "    const T zn = yn > T(0) ? yc : yc - T(cn);")],
     },
 }
 
@@ -317,19 +386,30 @@ CANDIDATES = {
         "levels unrolled by 1": [(_HYDRO_UNROLL, _HYDRO_UNROLL.replace("unroll 2", "unroll 1"))],
         "levels unrolled by 4": [(_HYDRO_UNROLL, _HYDRO_UNROLL.replace("unroll 2", "unroll 4"))],
     },
+    "updatedz_c": {
+        "4 blocks an SM (64 registers; f32 only)": _updatedz_c(blocks=4),
+        "6 blocks an SM (40 registers)": _updatedz_c(blocks=6, blocks64=6),
+        "no register cap": _updatedz_c(blocks=1, blocks64=1),
+        "levels unrolled by 1 (f32 only)": _updatedz_c(unroll=1),
+        "levels unrolled by 2 (f64 only)": _updatedz_c(unroll64=2),
+        "levels unrolled by 4": _updatedz_c(unroll=4, unroll64=4),
+        "128 threads a block": _updatedz_c(threads=128, blocks=16, blocks64=8),
+        "1024 threads a block": _updatedz_c(threads=1024, blocks=2, blocks64=1),
+        "40 levels a thread": _updatedz_c(levels=40),
+        "20 levels a thread": _updatedz_c(levels=20),
+    },
 }
 
 
 #: the kernel library each pick builds
-LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d"}
+LIBRARY = {"tracer": "fvtp2d", "single": "fvtp2d", "updatedz_c": "updatedz"}
 
 
-def candidate_sources(name):
-    """``{candidate: source text}`` of kernel ``name``; raises before any
-    build if a substitution's text is not in the source."""
-    src = (_build.CSRC / _build.SOURCES[LIBRARY.get(name, name)]).read_text()
+def substituted(name, src, table):
+    """``{label: source text}``: ``src`` with each entry of ``table``'s
+    substitutions; raises before any build if a text is not in ``src``."""
     texts = {}
-    for label, subs in {**CANDIDATES[name], **DIAGNOSTICS[name]}.items():
+    for label, subs in table.items():
         text = src
         for old, new in subs:
             if old not in text:
@@ -339,13 +419,31 @@ def candidate_sources(name):
     return texts
 
 
-def build_candidates(name):
-    """``{candidate: CDLL}`` of the candidates of kernel ``name``, built in
+def candidate_sources(name):
+    """``{candidate: source text}`` of kernel ``name``; raises before any
+    build if a substitution's text is not in the source."""
+    src = (_build.CSRC / _build.SOURCES[LIBRARY.get(name, name)]).read_text()
+    return substituted(name, src, {**CANDIDATES[name], **DIAGNOSTICS[name]})
+
+
+def earlier_sources(name, prev_dir):
+    """``{label: source text}`` of ``EARLIER[name]`` on the earlier source of
+    kernel ``name`` in ``prev_dir``."""
+    src = (Path(prev_dir) / _build.SOURCES[LIBRARY.get(name, name)]).read_text()
+    return substituted(name, src, EARLIER[name])
+
+
+def build_candidates(name, prev_dir=None):
+    """``{candidate: CDLL}`` of the candidates of kernel ``name`` (and, with
+    ``prev_dir``, of its earlier source's ``EARLIER`` entries), built in
     parallel; every build is waited for before a failure raises."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
+    texts = candidate_sources(name)
+    if prev_dir is not None and name in EARLIER:
+        texts.update(earlier_sources(name, prev_dir))
     procs = {}
-    for n, (label, text) in enumerate(candidate_sources(name).items()):
+    for n, (label, text) in enumerate(texts.items()):
         cu = out_dir / f"{name}_{n}.cu"
         cu.write_text(text)
         lib = out_dir / f"lib{name}_{n}.so"
@@ -389,6 +487,8 @@ def main() -> int:
     ap.add_argument("--kernels", default="sim1,fvtp2d")
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--npz", type=int, default=79)
+    ap.add_argument("--prev", default=None,
+                    help="directory of earlier sources: time those EARLIER lists too")
     args = ap.parse_args()
     picked = [k.strip() for k in args.kernels.split(",") if k.strip()]
     if not set(picked) <= set(CANDIDATES):
@@ -458,6 +558,18 @@ def main() -> int:
             time_candidates(f"hydro need={need}", lambda: hyk.hydrostatic_interfaces_cuda(
                 *h_args, need=need), libs, library="hydro")
         del h_args
+        torch.cuda.empty_cache()
+    if "updatedz_c" in picked:
+        from pace_tpu_torch.ops import updatedz_kernel as uzk
+
+        u_args = ab.updatedz_c_operands(args.n, args.npz, dev)
+        libs = build_candidates("updatedz_c", args.prev)
+        for dtype in (torch.float32, torch.float64):
+            a = [t.to(dtype).contiguous() for t in u_args[:5]] + [u_args[5]]
+            time_candidates(f"updatedz_c {str(dtype)[6:]}", lambda: uzk.updatedz_c_cuda(*a),
+                            libs, library="updatedz")
+            del a
+        del u_args
         torch.cuda.empty_cache()
     if "d_sw_tail" in picked:
         from pace_tpu_torch.ops import d_sw_tail_kernel as dtk
