@@ -53,7 +53,11 @@ Phases (any failure raises and exits non-zero):
    (``step_f64_scales``), that step again on the card with the pressure
    gradient's u and v set to NaN outside the compute domain, identical, and
    that step with the total-energy fixer on (``consv_te = 1``), held the
-   same way;
+   same way; that step followed by the physics of
+   ``examples/configs/baroclinic_c12_physics.yaml`` (GFDL microphysics, PBL
+   and shallow convection with its surface fluxes) from the moist tracer
+   block of ``demos/physics_step.moist_tracers``, and that step with the
+   saturation adjustment (``do_sat_adj``, ``do_qa``), held the same way;
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
@@ -81,10 +85,23 @@ Phases (any failure raises and exits non-zero):
    their own exact launch counts, then ``bench.py``'s configuration with the
    total-energy fixer on (``[step consv_te]``, ``consv_te = 1``, 1 warm and
    1 timed step: the step's gates, exactly the launches of ``[step]``, the
-   fixer's increment of each outer step);
+   fixer's increment of each outer step); then ``bench.py``'s
+   ``BENCH_PHYSICS=1`` path (``[step physics]``, ``demos/physics_step.run``:
+   each dycore step followed by the GFDL microphysics and the PBL, from the
+   moist tracer block; 1 warm and 2 timed steps: the step's gates with the
+   tracer drift over the tracers the physics does not touch, exactly the
+   launches of ``[step]``, ``delp`` untouched by the physics call, the call
+   not writing into its input state, and the water budget of one
+   microphysics call within ``WATER_BUDGET_MAX``) and the dycore step with
+   the saturation adjustment (``[step sat_adj]``, ``do_sat_adj``, ``do_qa``,
+   1 warm and 1 timed step: the step's gates with the drift of the six
+   water species' summed mass and of each non-water tracer but ``qcld``,
+   ``qcld`` in [0, 1], exactly the launches of ``[step]``);
 5. where the time goes: two more steps of each demo under
-   ``torch.profiler`` (one of each dycore step with and without the fixer),
-   device time by kernel.
+   ``torch.profiler`` (one of each dycore step with and without the fixer,
+   one step with the physics and the physics call alone: its device time,
+   its kernel launches and its largest PyTorch kernels), device time by
+   kernel.
 
 The last lines are the card's name and power limit (``nvidia-smi``), the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
@@ -279,6 +296,17 @@ PS_RANGE = (9.0e4, 1.06e5)
 UV_MAX = 120.0
 W_MAX = 10.0
 
+#: the physics of examples/configs/baroclinic_c12_physics.yaml (schemes and
+#: shallow-convection surface fluxes), held card against CPU at C24 f64
+C12_PHYSICS_SCHEMES = ("GFS_microphysics", "GFS_PBL", "GFS_shallow_convection")
+C12_PHYSICS_SHALLOW = dict(sensible_heat_flux=0.02, latent_heat_flux=2.0e-5)
+#: the water budget of one microphysics call on the advanced state of
+#: ``[step physics]``: |change of the six species' mass + surface
+#: precipitation| over the water mass, in float64 over the compute domain.
+#: pace_tpu's own float32 budget on the CPU at C24 npz=79 is 3.174e-10
+#: (tools/physics_water_budget.py), tighter than this gate.
+WATER_BUDGET_MAX = 1e-5
+
 
 def log(*a):
     print(*a, flush=True)
@@ -386,7 +414,9 @@ def check_sim1(label, got, ref, rel_tol):
 #: fields of the dycore step held card against CPU at C24 f64, within
 #: STEP_F64_REL_TOL of each field's scale: its maximum, as the earlier slices
 #: held theirs, or, where the ulp-level log difference of the vertical solve
-#: propagates, the larger scale of step_f64_scales (see PERF.md)
+#: propagates, the larger scale of step_f64_scales (see PERF.md); with the
+#: saturation adjustment, the cloud fraction in qcld is held on its own to
+#: the scale of cloud_fraction_scale
 STEP_FIELDS = ("u", "v", "w", "delz", "delp", "pt", "q", "ps", "pe", "peln", "pk", "pkz",
                "omga", "ua", "va", "uc", "vc", "mfxd", "mfyd", "cxd", "cyd", "diss_estd")
 STEP_F64_REL_TOL = 1e-12
@@ -412,10 +442,28 @@ def step_f64_scales(case, constants):
     return {"w": p_err, "delz": p_err * dt, "omga": pe_max * cfg.k_split / case.core.timestep}
 
 
-def profile_steps(label, step_fn, wall_ms, top=10, calls=2):
+def cloud_fraction_scale(state, dw):
+    """The scale of the cloud fraction qcld in the float64 check: its change
+    per unit relative change of temperature, rh / dw * T dln(qsat)/dT with
+    rh = 1, at most over the compute domain (about 180 at 300 K). The
+    cloud fraction (rh - (1 - dw)) / dw divides the relative humidity's
+    error by dw = 0.1, and qsat's Clausius-Clapeyron slope multiplies T's:
+    an ulp-level difference of the step's temperature between card and CPU
+    moves qcld by about 200 times as much as it moves T."""
+    from pace_tpu_torch import constants
+    from pace_tpu_torch.models.shield.microphysics import T_FREEZE
+
+    qv = state.q[:, constants.TRACER_NAMES.index("qvapor")]
+    t = ring(state.pt * state.pkz / (1.0 + constants.ZVIR * qv), 3)
+    tc = torch.clamp(t - T_FREEZE, -80.0, 50.0)
+    return float((t * 17.502 * 240.97 / (tc + 240.97) ** 2).max()) / dw
+
+
+def profile_steps(label, step_fn, wall_ms, top=10, calls=2, stats=None):
     """``calls`` calls of ``step_fn`` under torch.profiler: device time by
     kernel per call, the ``top`` largest. Returns the device ms per call
-    (None where the profiler recorded none)."""
+    (None where the profiler recorded none); ``stats``, where given, gets
+    the device launches (kernels, copies and sets) per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -430,6 +478,8 @@ def profile_steps(label, step_fn, wall_ms, top=10, calls=2):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    if stats is not None:
+        stats["launches"] = sum(r[2] for r in rows)
     if busy > 0:
         log(f"[profile] {label}: device time per step {busy:.3f} ms of {wall_ms:.3f} ms "
             f"wall (busy share {busy / wall_ms:.3f})")
@@ -506,15 +556,21 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     from pace_tpu_torch import _build, constants
     from pace_tpu_torch.demos import acoustic_substep as sdemo
     from pace_tpu_torch.demos import cgrid_half_step as cdemo
     from pace_tpu_torch.demos import dycore_step as ddemo
+    from pace_tpu_torch.demos import physics_step as pdemo
     from pace_tpu_torch.demos import tracer_advection as demo
+    from pace_tpu_torch.dtypes import to_tensor
     from pace_tpu_torch.models.fv3 import acoustics
     from pace_tpu_torch.models.fv3.acoustics import acoustic_loop
     from pace_tpu_torch.models.fv3.dycore import DynamicalCore, DynamicalCoreConfig
+    from pace_tpu_torch.models.shield.microphysics import microphysics_step
+    from pace_tpu_torch.models.shield.physics import dycore_to_physics
+    from pace_tpu_torch.models.shield.sas import ShallowConvectionConfig
     from pace_tpu_torch.ops import c_sw as c_sw_ops
     from pace_tpu_torch.ops import c_sw_tail_kernel as ck
     from pace_tpu_torch.ops import d2a2c as d2a2c_ops
@@ -1527,25 +1583,57 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # the same step with the total-energy fixer on (te1 before the remap, te2,
     # the global increment of each outer step and pt += dT / pkz after it),
     # held the same way
+    def check_step_f64(label, card, cpu, note="", qcld_scale=None):
+        """Each of STEP_FIELDS of the card's state within STEP_F64_REL_TOL
+        of its scale of the CPU's, on the compute domain, or raise. With
+        ``qcld_scale``, the tracer block is held without qcld, and qcld on
+        its own to the larger of its maximum and ``qcld_scale``."""
+        pairs = {nm: (getattr(card, nm).cpu(), getattr(cpu, nm), scales.get(nm, 0.0))
+                 for nm in STEP_FIELDS}
+        if qcld_scale is not None:
+            ic = constants.TRACER_NAMES.index("qcld")
+            keep = [k for k in range(len(constants.TRACER_NAMES)) if k != ic]
+            x, y, _ = pairs["q"]
+            pairs["q"] = (x[:, keep], y[:, keep], 0.0)
+            pairs["qcld"] = (x[:, ic], y[:, ic], qcld_scale)
+        worst = {}
+        for nm, (x, y, extra) in pairs.items():
+            x, y = ring(x, 3), ring(y, 3)
+            scale = max(float(y.abs().max()), extra)
+            worst[nm] = float((x - y).abs().max()) / scale
+        log(f"[check] C24 npz=8 f64 {label} (k_split=2, n_split=2), card kernels vs CPU plain "
+            f"path: {note}max diff over each field's scale: "
+            + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
+        bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
+        if bad:
+            raise AssertionError(f"C24 f64 {label} departs from the CPU reference: {bad}")
+
     e_cases = [ddemo.build_case(device=d, consv_te=1.0, **small) for d in (dev, "cpu")]
     for c in e_cases:
         c.state.q = q_step.to(c.state.q.device)
     e_card, e_cpu = (c.core.step_dynamics(c.state) for c in e_cases)
-    worst = {}
-    for nm in STEP_FIELDS:
-        x, y = ring(getattr(e_card, nm).cpu(), 3), ring(getattr(e_cpu, nm), 3)
-        scale = max(float(y.abs().max()), scales.get(nm, 0.0))
-        worst[nm] = float((x - y).abs().max()) / scale
     e_dT = [[float(t) for t in c.core.energy_fix_dT] for c in e_cases]
-    log(f"[check] C24 npz=8 f64 dycore step with consv_te=1 (k_split=2, n_split=2), card "
-        f"kernels vs CPU plain path: increments dT {e_dT[0]} K on the card, {e_dT[1]} K on the "
-        f"CPU; max diff over each field's scale: "
-        + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
-    bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
-    if bad:
-        raise AssertionError(f"C24 f64 dycore step with consv_te=1 departs from the CPU "
-                             f"reference: {bad}")
+    check_step_f64("dycore step with consv_te=1", e_card, e_cpu,
+                   f"increments dT {e_dT[0]} K on the card, {e_dT[1]} K on the CPU; ")
     del b_case, q_step, e_cases, e_card, e_cpu
+
+    # the step followed by the physics of baroclinic_c12_physics.yaml, from
+    # the moist tracer block, so that the shallow plume fires
+    phys_kw = dict(sas_config=ShallowConvectionConfig(**C12_PHYSICS_SHALLOW))
+    p_cases = [pdemo.build_case(device=d, schemes=C12_PHYSICS_SCHEMES, physics_kw=phys_kw,
+                                **small) for d in (dev, "cpu")]
+    p_card, p_cpu = (c.physics(c.core.step_dynamics(c.state)) for c in p_cases)
+    check_step_f64(f"dycore step and Physics({', '.join(C12_PHYSICS_SCHEMES)})", p_card, p_cpu)
+    del p_cases, p_card, p_cpu
+    # the step with the saturation adjustment and the cloud fraction
+    s_cases = [ddemo.build_case(device=d, do_sat_adj=True, do_qa=True, **small)
+               for d in (dev, "cpu")]
+    for c in s_cases:
+        c.state.q = to_tensor(pdemo.moist_tracers(c.state), c.state.q.device, c.state.q.dtype)
+    s_card, s_cpu = (c.core.step_dynamics(c.state) for c in s_cases)
+    check_step_f64("dycore step with do_sat_adj, do_qa", s_card, s_cpu,
+                   qcld_scale=cloud_fraction_scale(s_cpu, s_cases[1].core.config.dw_ocean))
+    del s_cases, s_card, s_cpu
 
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
@@ -1741,24 +1829,31 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # --- whole dycore steps through the demo's entry point, with a seeded
     #     tracer block to conserve: bench.py's configuration, then the
     #     hydrostatic flag set of examples/configs/baroclinic_c12.yaml
-    def run_steps(tag, step_case, tables, warm=1, timed=2):
-        """``warm`` + ``timed`` steps of ``step_case`` with the launch
-        counters set to 0 just before and read just after; the launches held
-        to ``tables`` exactly, the state to the step gates. Returns the
-        demo's result and the launches."""
-        step_case.state.q = seeded_tracers(step_case.state.q, 3)
+    def run_steps(tag, step_case, tables, warm=1, timed=2, runner=ddemo.run,
+                  tracer_groups=None):
+        """``warm`` + ``timed`` steps of ``step_case`` through ``runner`` with
+        the launch counters set to 0 just before and read just after; the
+        launches held to ``tables`` exactly, the state to the step gates, the
+        tracer mass drift taken over each group of ``tracer_groups`` (name ->
+        tracer indices; without it, over the whole block, which is first
+        seeded by ``seeded_tracers``). Returns the demo's result and the
+        launches."""
+        if tracer_groups is None:
+            step_case.state.q = seeded_tracers(step_case.state.q, 3)
+            tracer_groups = {"tracer": list(range(len(constants.TRACER_NAMES)))}
         sgrid = step_case.grid
         i = (..., slice(sgrid.n_halo, -sgrid.n_halo), slice(sgrid.n_halo, -sgrid.n_halo))
         area = sgrid.area[i].double()[:, None]
 
         def masses(st):
             dm = st.delp[i].double() * area
-            return float(dm.sum()), float((st.q[i].double() * dm[:, None]).sum())
+            return float(dm.sum()), {g: float((st.q[:, idx][i].double() * dm[:, None]).sum())
+                                     for g, idx in tracer_groups.items()}
 
         m0, qm0 = masses(step_case.state)
         zero_counters()
         torch.cuda.reset_peak_memory_stats(dev)
-        stout = ddemo.run(case=step_case, warm=warm, steps=timed)
+        stout = runner(case=step_case, warm=warm, steps=timed)
         st_launches = {k: c[k] for k, c in counters.items()}
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         n_steps = warm + timed
@@ -1776,7 +1871,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             "finite": all(bool(torch.isfinite(getattr(fst, f)[i]).all())
                           for f in ("u", "v", "w", "delp", "pt", "delz", "q", "ps")),
             "delp_min": float(fst.delp[i].min()), "delz_max": float(fst.delz[i].max()),
-            "mass_drift": abs(m1 - m0) / m0, "tracer_drift": abs(qm1 - qm0) / qm0,
+            "mass_drift": abs(m1 - m0) / m0,
+            "tracer_drift": {g: abs(qm1[g] - qm0[g]) / qm0[g] for g in tracer_groups},
             "ps_min": float(fst.ps[i].min()), "ps_max": float(fst.ps[i].max()),
             "uv_max": max(float(fst.u[i].abs().max()), float(fst.v[i].abs().max())),
             "w_max": float(fst.w[i].abs().max()), "pt_min": float(fst.pt[i].min()),
@@ -1792,11 +1888,12 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             f"GB, tracer sub-cycles per outer step {stout['tracer_subcycles']}")
         log(f"[{tag}] after {n_steps} steps: finite {stats['finite']}, delp min "
             f"{stats['delp_min']:.4f} Pa, delz max {stats['delz_max']:.4f} m, drift of dry mass "
-            f"{stats['mass_drift']:.3e} and of tracer mass {stats['tracer_drift']:.3e} (allowed "
-            f"{STEP_MASS_DRIFT_MAX}), ps in [{stats['ps_min']:.1f}, {stats['ps_max']:.1f}] Pa "
-            f"(allowed {PS_RANGE}), max|u|,|v| {stats['uv_max']:.3f} m/s (allowed {UV_MAX}), "
-            f"max|w| {stats['w_max']:.4e} m/s (allowed {W_MAX}), pt in [{stats['pt_min']:.3f}, "
-            f"{stats['pt_max']:.3f}] K")
+            f"{stats['mass_drift']:.3e} and of "
+            + ", ".join(f"{g} mass {d:.3e}" for g, d in stats["tracer_drift"].items())
+            + f" (allowed {STEP_MASS_DRIFT_MAX}), ps in [{stats['ps_min']:.1f}, "
+            f"{stats['ps_max']:.1f}] Pa (allowed {PS_RANGE}), max|u|,|v| {stats['uv_max']:.3f} "
+            f"m/s (allowed {UV_MAX}), max|w| {stats['w_max']:.4e} m/s (allowed {W_MAX}), pt in "
+            f"[{stats['pt_min']:.3f}, {stats['pt_max']:.3f}] K")
         log(f"[{tag}] launches in {n_steps} steps: {st_launches}")
         failures = []
         if cfg_.consv_te > 0:
@@ -1811,9 +1908,10 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             failures.append(f"delp min {stats['delp_min']}")
         if not stats["delz_max"] < 0:
             failures.append(f"delz max {stats['delz_max']}")
-        for k in ("mass_drift", "tracer_drift"):
-            if not stats[k] <= STEP_MASS_DRIFT_MAX:
-                failures.append(f"{k} {stats[k]}")
+        for k, d in [("mass_drift", stats["mass_drift"])] + [
+                (f"{g} mass drift", d) for g, d in stats["tracer_drift"].items()]:
+            if not d <= STEP_MASS_DRIFT_MAX:
+                failures.append(f"{k} {d}")
         if not PS_RANGE[0] <= stats["ps_min"] <= stats["ps_max"] <= PS_RANGE[1]:
             failures.append(f"ps range [{stats['ps_min']}, {stats['ps_max']}]")
         if not stats["uv_max"] <= UV_MAX:
@@ -1848,6 +1946,67 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     log(f"[step consv_te] {e_out['ms_per_step']:.3f} ms/step of wall time against "
         f"{stout['ms_per_step']:.3f} ms/step of [step]")
 
+    # bench.py's BENCH_PHYSICS=1 path: each dycore step followed by the GFDL
+    # microphysics and the PBL, from the moist tracer block. The physics
+    # moves water between the six species and lets it fall out, so the
+    # tracer drift is taken over each of the other tracers.
+    names = constants.TRACER_NAMES
+    water = [names.index(nm) for nm in
+             ("qvapor", "qliquid", "qice", "qrain", "qsnow", "qgraupel")]
+    dry_tracers = {nm: [k] for k, nm in enumerate(names) if k not in water}
+    torch.cuda.empty_cache()
+    p_case = pdemo.build_case(n, npz, device=dev, dtype=f32)
+    p_out, p_launches = run_steps("step physics", p_case, STEP_LAUNCHES, runner=pdemo.run,
+                                  tracer_groups=dry_tracers)
+    log(f"[step physics] physics call {p_out['physics_ms_per_step']:.3f} ms/step of wall time "
+        f"(ms: {', '.join(f'{t:.3f}' for t in p_out['physics_ms'])}) within "
+        f"{p_out['ms_per_step']:.3f} ms/step of the whole step, against "
+        f"{stout['ms_per_step']:.3f} ms/step of [step]")
+    # one more call: delp bit for bit, and the state it is given not written
+    # (compared as bytes: the ghost columns may hold NaN)
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                                  b.contiguous().view(torch.uint8))
+
+    p_in = p_case.state
+    before = {f: getattr(p_in, f).clone() for f in ("u", "v", "w", "delz", "pt", "q", "delp")}
+    p_after = p_case.physics(p_in)
+    delp_same = same_bits(p_after.delp, before["delp"])
+    written = [f for f, t in before.items() if not same_bits(getattr(p_in, f), t)]
+    del p_after, before
+    # the water budget of one microphysics call on the advanced state
+    phy = dycore_to_physics(p_in)
+    species = [getattr(phy, nm) for nm in
+               ("qvapor", "qliquid", "qice", "qrain", "qsnow", "qgraupel")]
+    mp_out = microphysics_step(*species, phy.pt, phy.p_mid, phy.delp, ddemo.TIMESTEP,
+                               p_case.physics.config)
+    budget, w_mass, p_mass = pdemo.water_budget(species, mp_out[:6], mp_out[7], phy.delp,
+                                                p_case.grid.area, p_case.grid.n_halo)
+    del phy, species, mp_out
+    log(f"[step physics] the physics call leaves delp bit for bit: {delp_same}; fields of its "
+        f"input state written: {written or 'none'}; water budget of one microphysics call "
+        f"|dM + P| / M {budget:.3e} (allowed {WATER_BUDGET_MAX}; water {w_mass:.6e} kg, "
+        f"precipitated {p_mass:.6e} kg)")
+    if not (delp_same and not written and budget <= WATER_BUDGET_MAX):
+        raise AssertionError(f"[step physics] checks failed: delp kept {delp_same}, input "
+                             f"fields written {written}, water budget {budget}")
+
+    # bench.py's configuration with the saturation adjustment and the cloud
+    # fraction: water moves between the six species, qcld is overwritten
+    s_case = ddemo.build_case(n, npz, device=dev, dtype=f32, do_sat_adj=True, do_qa=True)
+    s_case.state.q = to_tensor(pdemo.moist_tracers(s_case.state), dev, f32)
+    s_groups = {"water": water, **{nm: k for nm, k in dry_tracers.items() if nm != "qcld"}}
+    s_out, s_launches = run_steps("step sat_adj", s_case, STEP_LAUNCHES, warm=1, timed=1,
+                                  tracer_groups=s_groups)
+    qcld = s_case.state.q[:, names.index("qcld"), :, 3:-3, 3:-3]
+    qcld_range = (float(qcld.min()), float(qcld.max()))
+    log(f"[step sat_adj] {s_out['ms_per_step']:.3f} ms/step of wall time against "
+        f"{stout['ms_per_step']:.3f} ms/step of [step]; qcld in [{qcld_range[0]:.4f}, "
+        f"{qcld_range[1]:.4f}] (allowed [0, 1])")
+    if not 0.0 <= qcld_range[0] <= qcld_range[1] <= 1.0:
+        raise AssertionError(f"[step sat_adj] qcld range {qcld_range}")
+    del s_case, qcld
+
     # ------------------------------------------------------------------
     # 5. where the time goes: two more steps under the profiler (after the
     #    launch counts were read), device time by kernel
@@ -1880,6 +2039,24 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             f"of [step]")
     del e_case
 
+    def dycore_step_physics():
+        p_case.state = p_case.physics(p_case.core.step_dynamics(p_case.state))
+
+    pstep_dev = profile_steps("dycore step physics", dycore_step_physics, p_out["ms_per_step"],
+                              top=15, calls=1)
+    p_in, phys_stats = p_case.state, {}
+    phys_dev = profile_steps("physics call", lambda: p_case.physics(p_in),
+                             p_out["physics_ms_per_step"], top=15, calls=1, stats=phys_stats)
+
+    def ms(t):
+        return "not measured" if t is None else f"{t:.3f} ms"
+
+    log(f"[step physics] physics call: device time {ms(phys_dev)} against "
+        f"{p_out['physics_ms_per_step']:.3f} ms of wall time, {phys_stats.get('launches')} "
+        f"device launches (kernels, copies and sets) a call; the step with the physics: device "
+        f"time {ms(pstep_dev)} against {ms(step_dev)} of [step]")
+    del p_case, p_in
+
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
         "fvtp2d": ("pace_tpu_torch/csrc/fvtp2d.cu", "pace_tpu/ops/fvtp2d_pallas.py:135"),
@@ -1904,7 +2081,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                    "nh_cgrid_half_step": n_launches[name],
                    "acoustic_substep": s_launches[name], "dycore_step": st_launches[name],
                    "dycore_step_hydrostatic": h_launches[name],
-                   "dycore_step_consv_te": e_launches[name]}
+                   "dycore_step_consv_te": e_launches[name],
+                   "dycore_step_physics": p_launches[name],
+                   "dycore_step_sat_adj": s_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1912,6 +2091,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

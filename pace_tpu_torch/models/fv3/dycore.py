@@ -18,6 +18,7 @@ from typing import List
 import torch
 
 from ... import constants
+from ...constants import TRACER_NAMES
 from ...ops.d2a2c import d2a2c_vect
 from ...ops.d_sw import DSWConfig
 from ...ops.dycore_extras import (
@@ -25,22 +26,26 @@ from ...ops.dycore_extras import (
     global_energy_fix_increment,
     neg_adj3,
     ray_fast,
+    sat_adjust,
     total_energy_columns,
 )
 from ...ops.moist_cv import compute_q_con, moist_cv
 from ...ops.remapping import pe_at_u_points, pe_at_v_points, remap_field_best, remap_tracers
 from ...ops.stencil_utils import scalar_like
 from ...ops.tracer_advection import advect_tracers, subcycle_count
+from ..shield.microphysics import MicrophysicsConfig
 from .acoustics import AcousticConfig, acoustic_loop
 from .state import DycoreState
+
+#: the six water species the saturation adjustment updates, in its order
+_WATER = ("qvapor", "qliquid", "qice", "qrain", "qsnow", "qgraupel")
 
 
 @dataclasses.dataclass(frozen=True)
 class DynamicalCoreConfig:
     """The dycore namelist subset of ``pace_tpu``'s ``DynamicalCoreConfig``,
     every field and default. Values it does not implement are refused in
-    ``__post_init__`` as there; :class:`DynamicalCore` refuses the one whose
-    operators the port has not taken yet (``do_sat_adj``)."""
+    ``__post_init__`` as there."""
 
     npz: int = 79
     k_split: int = 1
@@ -119,6 +124,25 @@ class DynamicalCoreConfig:
                 " production path); z_tracer=false has no equivalent here"
             )
 
+    def sat_adjust_config(self) -> MicrophysicsConfig:
+        """The microphysics configuration of the saturation-adjustment
+        namelist the dycore shares with the GFDL microphysics (used by
+        ``do_sat_adj`` in the Remapping stage)."""
+        return MicrophysicsConfig(
+            tau_l2v=self.tau_l2v,
+            tau_v2l=self.tau_v2l,
+            tau_i2s=self.tau_i2s,
+            tau_g2v=self.tau_g2v,
+            ql_gen=self.ql_gen,
+            ql_mlt=self.ql_mlt,
+            qs_mlt=self.qs_mlt,
+            qi_lim=self.qi_lim,
+            dw_ocean=self.dw_ocean,
+            dw_land=self.dw_land,
+            icloud_f=self.icloud_f,
+            do_qa=self.do_qa,
+        )
+
     def acoustic(self) -> AcousticConfig:
         return AcousticConfig(
             n_split=self.n_split,
@@ -175,17 +199,13 @@ class DynamicalCore:
         core = DynamicalCore(grid_data, halo, config, dt_atmos)
         state = core.step_dynamics(state)
 
-    ``do_sat_adj`` (ROADMAP queue 1 item 4) and a stage ``checkpointer``
-    (item 6) are not ported and raise ``NotImplementedError`` here, rather
-    than being skipped by the step.
+    A stage ``checkpointer`` (ROADMAP queue 1 item 6) is not ported and
+    raises ``NotImplementedError`` here, rather than being skipped by the
+    step.
     """
 
     def __init__(self, grid, halo, config: DynamicalCoreConfig, timestep: float,
                  checkpointer=None):
-        if config.do_sat_adj:
-            raise NotImplementedError(
-                "do_sat_adj: the fast saturation adjustment is not ported yet "
-                "(ROADMAP queue 1 item 4)")
         if checkpointer is not None:
             raise NotImplementedError(
                 "stage checkpointers are not ported yet (ROADMAP queue 1 item 6)")
@@ -193,6 +213,7 @@ class DynamicalCore:
         self.halo = halo
         self.config = config
         self.timestep = float(timestep)
+        self._sat_adjust_config = config.sat_adjust_config()
         #: tracer sub-cycles of each outer step of the last call
         self.tracer_subcycles: List[int] = []
         #: with consv_te > 0, the energy fixer's increment [K] of each outer
@@ -272,7 +293,7 @@ class DynamicalCore:
         pe0 = _interfaces(delp0, grid.ptop)
         pe_old_mid = 0.5 * (pe0[..., 1:, :, :] + pe0[..., :-1, :, :])
         del pe0, delp0
-        u, v, w, delz, delp, pt, q, pe, pkz, omga = self._remap(
+        u, v, w, delz, delp, pt, q, pe, peln, pkz, omga = self._remap(
             u, v, w, delz, delp, pt, q, pe_old_mid=pe_old_mid, mdt=dt_k)
         if cfg.consv_te > 0.0:
             # the global total-energy fixer: the remap's energy change over
@@ -285,6 +306,19 @@ class DynamicalCore:
             del te1, te2, cvm, _q_con
             pt = pt + dT / pkz
             self.energy_fix_dT.append(dT)
+        if cfg.do_sat_adj:
+            # the fast phase adjustment of all six water species, shared with
+            # the GFDL microphysics, at the remap's layer pressures
+            p_mid = delp / (peln[..., 1:, :, :] - peln[..., :-1, :, :])
+            pt, qv, ql, qi, qr, qs, qg, qa = sat_adjust(
+                pt, *(q[:, TRACER_NAMES.index(n)] for n in _WATER), p_mid=p_mid, pkz=pkz,
+                dt=dt_k, config=self._sat_adjust_config)
+            new = dict(zip(_WATER, (qv, ql, qi, qr, qs, qg)))
+            if cfg.do_qa and qa is not None:
+                # the qcld tracer takes the diagnostic cloud fraction
+                new["qcld"] = qa
+            q = torch.stack([new.get(n, q[:, i]) for i, n in enumerate(TRACER_NAMES)], dim=1)
+            del p_mid, qv, ql, qi, qr, qs, qg, qa, new
 
         # the fv_dynamics tail: sponge, slow Rayleigh damping, fill
         if cfg.n_sponge > 0 and cfg.d_ext > 0.0:
@@ -302,7 +336,8 @@ class DynamicalCore:
         """Lagrangian -> Eulerian remap of all state with the kord family per
         field (kord_mt winds, kord_tm temperature, kord_tr tracers, kord_wz
         vertical wind and specific volume). Returns ``(u, v, w, delz, delp,
-        pt, q, pe, pkz, omga)`` on the target interfaces ``pe``."""
+        pt, q, pe, peln, pkz, omga)`` on the target interfaces ``pe`` (and
+        their logarithm ``peln``)."""
         cfg = self.config
         grid = self.grid
         pe1 = _interfaces(delp, grid.ptop)
@@ -331,9 +366,9 @@ class DynamicalCore:
         v = remap_field_best(v, pe_at_v_points(pe1), pe_at_v_points(pe2), cfg.kord_mt)
 
         delp = pe2[..., 1:, :, :] - pe2[..., :-1, :, :]
+        peln = torch.log(pe2)
         kap = constants.KAPPA
         if delz is None:
-            peln = torch.log(pe2)
             pk = (pe2 / scalar_like(constants.P_REF, pe2)) ** kap
             pkz = (pk[..., 1:, :, :] - pk[..., :-1, :, :]) / (
                 kap * (peln[..., 1:, :, :] - peln[..., :-1, :, :]))
@@ -344,4 +379,4 @@ class DynamicalCore:
                  / (constants.P_REF**kap * (-delz)))
             p_full = x ** (1.0 / (1.0 - kap))
             pkz = (p_full / scalar_like(constants.P_REF, p_full)) ** kap
-        return u, v, w, delz, delp, pt, q, pe2, pkz, omga
+        return u, v, w, delz, delp, pt, q, pe2, peln, pkz, omga

@@ -1,13 +1,15 @@
 """Dycore auxiliary operators: sponge-layer diffusion, fast Rayleigh damping,
-negative-tracer adjustment, the total-energy fixer.
+negative-tracer adjustment, the saturation adjustment, the total-energy
+fixer.
 
-Port of ``pace_tpu.ops.dycore_extras`` but its saturation adjustment and
-cloud fraction (reference roles: ``pyFV3.stencils.{del2cubed, ray_fast,
-neg_adj3, fillz}``: upper-atmosphere sponge-layer Laplacian damping
-(n_sponge, d_ext); Rayleigh damping of u, v, w above rf_cutoff; filling of
-negative tracers; and the ``consv_te`` global energy fixer of the Remapping
-stage). Plain PyTorch throughout, as ``pace_tpu`` leaves them to XLA;
-``fillz``'s column scans are loops over k.
+Port of ``pace_tpu.ops.dycore_extras`` (reference roles: ``pyFV3.stencils.
+{del2cubed, ray_fast, neg_adj3, fillz}`` and ``SatAdjust3d``:
+upper-atmosphere sponge-layer Laplacian damping (n_sponge, d_ext); Rayleigh
+damping of u, v, w above rf_cutoff; filling of negative tracers; the fast
+saturation adjustment of ``do_sat_adj``, shared with the GFDL microphysics,
+and the diagnostic cloud fraction; and the ``consv_te`` global energy fixer
+of the Remapping stage). Plain PyTorch throughout, as ``pace_tpu`` leaves
+them to XLA; ``fillz``'s column scans are loops over k.
 """
 
 from __future__ import annotations
@@ -18,6 +20,11 @@ import torch
 
 from .. import constants
 from ..constants import TRACER_NAMES
+from ..models.shield.microphysics import (
+    MicrophysicsConfig,
+    fast_saturation_adjustment,
+    saturation_mixing_ratio,
+)
 from .delnflux import _grad_fluxes
 from .stencil_utils import (
     bcast_k,
@@ -177,6 +184,48 @@ def neg_adj3(q, delp, pt=None, pkz=None, nwat: int = 6):
     if t_abs is not None:
         pt = t_abs * (1.0 + constants.ZVIR * q[:, iv]) / pkz
     return q, pt
+
+
+def sat_adjust(pt, qv, ql, qi=None, qr=None, qs=None, qg=None, p_mid=None, pkz=None,
+               dt: float = 0.0, config=None):
+    """Fast saturation adjustment over the six water species (reference
+    ``SatAdjust3d``, applied in the Remapping stage with ``do_sat_adj``):
+    the microphysics' :func:`fast_saturation_adjustment` on the temperature
+    ``pt * pkz / (1 + zvir qv)`` of the virtual potential temperature
+    ``pt``, which is rebuilt with the updated vapor.
+
+    Returns (pt, qv, ql, qi, qr, qs, qg, qa); qa is None unless
+    ``config.do_qa``. The ice species may be None (vapor/liquid-only
+    configurations) and then come back as None.
+    """
+    if config is None:
+        config = MicrophysicsConfig()
+    z = torch.zeros_like(qv)
+    has_ice = qi is not None
+    t = pt * pkz / (1.0 + constants.ZVIR * qv)
+    qv2, ql2, qi2, qr2, qs2, qg2, t2, qa = fast_saturation_adjustment(
+        qv, ql,
+        qi if qi is not None else z,
+        qr if qr is not None else z,
+        qs if qs is not None else z,
+        qg if qg is not None else z,
+        t, p_mid, dt, config,
+    )
+    pt2 = t2 * (1.0 + constants.ZVIR * qv2) / pkz
+    if not has_ice:
+        return pt2, qv2, ql2, None, None, None, None, qa
+    return pt2, qv2, ql2, qi2, qr2, qs2, qg2, qa
+
+
+def cloud_fraction(qv, ql, t, p_mid, rh_crit: float = 0.75, ql_full: float = 1.5e-4):
+    """Diagnostic cloud fraction: fully cloudy once condensate reaches
+    ``ql_full``, partially cloudy from relative humidity above ``rh_crit``
+    (the square of a linear ramp), whichever is larger."""
+    qsat = saturation_mixing_ratio(t, p_mid)
+    rh = torch.clamp(qv / torch.clamp(qsat, min=1e-12), 0.0, 1.0)
+    qa_rh = torch.clamp((rh - rh_crit) / (1.0 - rh_crit), 0.0, 1.0)
+    qa_ql = torch.clamp(ql / ql_full, 0.0, 1.0)
+    return torch.maximum(qa_rh * qa_rh, qa_ql)
 
 
 def global_energy_fix_increment(te1, te2, cvm, delp, area, n_halo: int, consv: float):

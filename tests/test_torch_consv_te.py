@@ -221,10 +221,17 @@ def test_step_records_one_increment_an_outer_step(steps, case):
 
 
 def test_consv_te_is_taken_and_sat_adj_still_refused(grids):
+    """consv_te is taken, alone and beside do_sat_adj (which the dycore
+    refused until the saturation adjustment was ported); a checkpointer is
+    still refused."""
     dycore.DynamicalCore(grids["tgrid"], None, dycore.DynamicalCoreConfig(consv_te=1.0), 200.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+    core = dycore.DynamicalCore(grids["tgrid"], None,
+                                dycore.DynamicalCoreConfig(consv_te=1.0, do_sat_adj=True), 200.0)
+    assert core.config.do_sat_adj and core.config.consv_te == 1.0
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         dycore.DynamicalCore(grids["tgrid"], None,
-                             dycore.DynamicalCoreConfig(consv_te=1.0, do_sat_adj=True), 200.0)
+                             dycore.DynamicalCoreConfig(consv_te=1.0, do_sat_adj=True), 200.0,
+                             checkpointer=lambda *a, **k: None)
 
 
 def test_without_consv_te_the_fixer_does_no_work(monkeypatch):

@@ -162,13 +162,18 @@ def test_config_refuses_what_pace_tpu_refuses(bad):
 
 @pytest.mark.parametrize("what", ["do_sat_adj", "checkpointer"])
 def test_unported_options_raise(steps, what):
-    cfg, kw = dycore.DynamicalCoreConfig(), {}
+    """A stage checkpointer (ROADMAP queue 1 item 6) raises. do_sat_adj,
+    refused until the saturation adjustment was ported, now builds the
+    dycore with its saturation-adjustment configuration (the step itself is
+    held against pace_tpu's in test_torch_sat_adjust.py)."""
     if what == "do_sat_adj":
-        cfg = dycore.DynamicalCoreConfig(do_sat_adj=True)
-    else:
-        kw["checkpointer"] = lambda *a, **k: None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item (4|6)"):
-        dycore.DynamicalCore(steps["tgrid"], None, cfg, 200.0, **kw)
+        core = dycore.DynamicalCore(steps["tgrid"], None,
+                                    dycore.DynamicalCoreConfig(do_sat_adj=True), 200.0)
+        assert core._sat_adjust_config == core.config.sat_adjust_config()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        dycore.DynamicalCore(steps["tgrid"], None, dycore.DynamicalCoreConfig(), 200.0,
+                             checkpointer=lambda *a, **k: None)
 
 
 def test_bench_config_is_bench_py_s():

@@ -69,5 +69,13 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.ops.moist_cv",
         "pace_tpu_torch.models.fv3.dycore",
         "pace_tpu_torch.demos.dycore_step",
+        "pace_tpu_torch.models.shield",
+        "pace_tpu_torch.models.shield.microphysics",
+        "pace_tpu_torch.models.shield.mf_common",
+        "pace_tpu_torch.models.shield.pbl",
+        "pace_tpu_torch.models.shield.sas",
+        "pace_tpu_torch.models.shield.surface",
+        "pace_tpu_torch.models.shield.physics",
+        "pace_tpu_torch.demos.physics_step",
     }
     assert expected <= set(result["modules"])
