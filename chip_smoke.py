@@ -58,6 +58,13 @@ Phases (any failure raises and exits non-zero):
    and shallow convection with its surface fluxes) from the moist tracer
    block of ``demos/physics_step.moist_tracers``, and that step with the
    saturation adjustment (``do_sat_adj``, ``do_qa``), held the same way;
+   the same step followed by ``examples/configs/earthlike_c24.yaml``'s
+   physics twice (the second call at 200 s), with its surface state and the
+   carried precipitation; and four physics sets alone on that step's state,
+   two calls each, with their surface states: band radiation over land,
+   ``aquaplanet_c24.yaml``'s set with the diurnal and seasonal insolation,
+   Held-Suarez and the RJ simple physics (all within 1e-12 of each field's
+   scale);
 4. the slices through their user entry points, each with every launch
    counter set to 0 just before and read just after: the tracer-advection
    demo at C192, npz=79, nq=9, f32, dt=1800 s, 6 steps (conservation,
@@ -82,7 +89,9 @@ Phases (any failure raises and exits non-zero):
    the range of ``ps``, wind bounds), then whole hydrostatic steps with the
    flag set of ``examples/configs/baroclinic_c12.yaml`` (``[step
    hydrostatic]``, ``HYDROSTATIC_STEP_CONFIG``), with the same gates and
-   their own exact launch counts, then ``bench.py``'s configuration with the
+   their own exact launch counts, then that run going on with Held-Suarez
+   after each step (``[step held_suarez]``, as ``held_suarez_c24.yaml``
+   runs it: those gates and launches), then ``bench.py``'s configuration with the
    total-energy fixer on (``[step consv_te]``, ``consv_te = 1``, 1 warm and
    1 timed step: the step's gates, exactly the launches of ``[step]``, the
    fixer's increment of each outer step); then ``bench.py``'s
@@ -101,7 +110,22 @@ Phases (any failure raises and exits non-zero):
    ``torch.profiler`` (one of each dycore step with and without the fixer,
    one step with the physics and the physics call alone: its device time,
    its kernel launches and its largest PyTorch kernels), device time by
-   kernel.
+   kernel;
+6. the rest of the physics, after the earlier paths' cases are freed:
+   ``[step earthlike]`` (``demos/physics_step.run`` with ``EARTHLIKE``:
+   each dycore step followed by ``earthlike_c24.yaml``'s physics, gray
+   radiation, the PBL, deep and shallow SAS and the microphysics with
+   ``fv_sg_adj = 1800`` over the ``mixed`` surface; 1 warm and 2 timed
+   steps: the step gates with the tracer drift over the tracers no scheme
+   changes, exactly ``[step]``'s launches, the skin temperature, ice
+   thickness and soil moisture in range, the land mask's share equal to
+   the share of |lat| <= 55 degrees, the state and surface state a call is
+   given not written, one gray radiation call's column energy closure
+   within float32 rounding and its OLR; the physics call profiled), and
+   three physics calls alone on ``[step earthlike]``'s state (band radiation over
+   land with its LW+SW closure and OLR, ``aquaplanet_c24.yaml``'s set, the
+   RJ simple physics: each finite, with its wall and device time and
+   launches).
 
 The last lines are the card's name and power limit (``nvidia-smi``), the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
@@ -111,6 +135,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -306,6 +331,14 @@ C12_PHYSICS_SHALLOW = dict(sensible_heat_flux=0.02, latent_heat_flux=2.0e-5)
 #: pace_tpu's own float32 budget on the CPU at C24 npz=79 is 3.174e-10
 #: (tools/physics_water_budget.py), tighter than this gate.
 WATER_BUDGET_MAX = 1e-5
+#: [step earthlike]: the compute domain's skin temperature range [K] and
+#: the OLR range [W/m^2] of a radiation call on the advanced state
+TSKIN_RANGE = (200.0, 340.0)
+OLR_RANGE = (150.0, 330.0)
+#: the physics sets held alone card against CPU at C24 f64, each over two
+#: calls from these model times [s]
+PHYSICS_ALONE_TIMES = {"band_radiation, land": 0.0, "aquaplanet, diurnal and seasonal": 1.5e7,
+                       "held_suarez": 0.0, "RJ_simple_physics": 0.0}
 
 
 def log(*a):
@@ -459,6 +492,70 @@ def cloud_fraction_scale(state, dw):
     return float((t * 17.502 * 240.97 / (tc + 240.97) ** 2).max()) / dw
 
 
+#: the fields a physics call changes, held card against CPU
+PHYSICS_FIELDS = ("u", "v", "pt", "q", "delp")
+
+
+def surface_fields(sfc):
+    """A SurfaceState's fields by name (``precip``, ``lsm.tskin``, ...);
+    empty for none."""
+    if sfc is None:
+        return {}
+    out = {"precip": sfc.precip}
+    for part in ("lsm", "ice"):
+        sub = getattr(sfc, part)
+        if sub is not None:
+            out.update({f"{part}.{f.name}": getattr(sub, f.name)
+                        for f in dataclasses.fields(sub)})
+    return out
+
+
+def check_physics_f64(label, card, cpu):
+    """Each field of ``card`` (name -> tensor on the card) within
+    STEP_F64_REL_TOL of the largest value of ``cpu``'s on the compute
+    domain, or raise."""
+    worst = {}
+    for nm, y in cpu.items():
+        x, y = ring(card[nm].cpu(), 3), ring(y, 3)
+        worst[nm] = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
+    log(f"[check] C24 npz=8 f64 {label}, card vs CPU plain path: max diff over each field's "
+        "maximum: " + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
+    bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
+    if bad:
+        raise AssertionError(f"C24 f64 {label} departs from the CPU reference: {bad}")
+
+
+def same_bits(a, b):
+    """``a`` and ``b`` hold the same bytes (NaN in ghost columns included)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+def column_closure(label, dT, pe, net, dt, t_lay, cp, grav):
+    """The column energy closure of one radiation call: cp/g sum(dT dp) / dt
+    against the net flux into the column's top minus the net flux out of
+    its bottom (``net`` positive downward into the column, at interfaces),
+    on the compute domain in float64. The tolerance is float32 rounding:
+    4 ulp of T at every level of the column (pt is rounded twice on the
+    way, and T from it), and 4 K ulp of the largest flux. Returns (max err,
+    tolerance)."""
+    eps = torch.finfo(torch.float32).eps
+    dp = ring(pe[:, 1:] - pe[:, :-1], 3).double()
+    heat = cp / grav * (ring(dT, 3).double() * dp).sum(dim=1) / dt
+    flux = ring(net[:, 0] - net[:, -1], 3).double()
+    tol = (cp / grav / dt * 4 * eps * (ring(t_lay, 3).double().abs() * dp).sum(dim=1)
+           + 4 * pe.shape[1] * eps * float(ring(net, 3).abs().max()))
+    err = (heat - flux).abs()
+    bad = int((err > tol).sum())
+    log(f"[check] {label} column energy closure: max |cp/g sum(dT dp)/dt - net flux "
+        f"convergence| {float(err.max()):.4e} W/m^2 (float32 rounding bound at that column "
+        f"{float(tol.flatten()[int(err.argmax())]):.4e}, least bound {float(tol.min()):.4e}), "
+        f"flux convergence in [{float(flux.min()):.3f}, {float(flux.max()):.3f}] W/m^2; "
+        f"{bad} columns beyond their bound")
+    if bad:
+        raise AssertionError(f"{label}: column energy closure fails at {bad} columns")
+
+
 def profile_steps(label, step_fn, wall_ms, top=10, calls=2, stats=None):
     """``calls`` calls of ``step_fn`` under torch.profiler: device time by
     kernel per call, the ``top`` largest. Returns the device ms per call
@@ -570,7 +667,10 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     from pace_tpu_torch.models.fv3.dycore import DynamicalCore, DynamicalCoreConfig
     from pace_tpu_torch.models.shield.microphysics import microphysics_step
     from pace_tpu_torch.models.shield.physics import dycore_to_physics
+    from pace_tpu_torch.models.shield import band_radiation as band
+    from pace_tpu_torch.models.shield import radiation as rad
     from pace_tpu_torch.models.shield.sas import ShallowConvectionConfig
+    from pace_tpu_torch.models.shield.surface import SurfaceConfig
     from pace_tpu_torch.ops import c_sw as c_sw_ops
     from pace_tpu_torch.ops import c_sw_tail_kernel as ck
     from pace_tpu_torch.ops import d2a2c as d2a2c_ops
@@ -1622,9 +1722,40 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     phys_kw = dict(sas_config=ShallowConvectionConfig(**C12_PHYSICS_SHALLOW))
     p_cases = [pdemo.build_case(device=d, schemes=C12_PHYSICS_SCHEMES, physics_kw=phys_kw,
                                 **small) for d in (dev, "cpu")]
-    p_card, p_cpu = (c.physics(c.core.step_dynamics(c.state)) for c in p_cases)
+    stepped = [c.core.step_dynamics(c.state) for c in p_cases]
+    p_card, p_cpu = (c.physics(st) for c, st in zip(p_cases, stepped))
     check_step_f64(f"dycore step and Physics({', '.join(C12_PHYSICS_SCHEMES)})", p_card, p_cpu)
-    del p_cases, p_card, p_cpu
+    # the same step followed by earthlike_c24.yaml's physics twice (the
+    # second call 200 s on), with its surface state and carried precipitation
+    t_phys = time.perf_counter()
+    e_phys = [pdemo.make_physics(c.grid, **pdemo.EARTHLIKE) for c in p_cases]
+    e_card, e_cpu = (ph(ph(st, 0.0), ddemo.TIMESTEP) for ph, st in zip(e_phys, stepped))
+    check_step_f64("dycore step and earthlike_c24.yaml's Physics twice", e_card, e_cpu)
+    check_physics_f64("earthlike_c24.yaml's Physics twice after the step: its surface state",
+                      surface_fields(e_phys[0].surface_state),
+                      surface_fields(e_phys[1].surface_state))
+    # four physics sets alone on the stepped state, two calls each
+    alone = {
+        "band_radiation, land": dict(schemes=("band_radiation",),
+                                     surface_config=SurfaceConfig(type="land")),
+        "aquaplanet, diurnal and seasonal": dict(pdemo.AQUAPLANET, physics_kw=dict(
+            pdemo.AQUAPLANET["physics_kw"], radiation_config=rad.GrayRadiationConfig(
+                interactive_vapor=True, diurnal=True, seasonal=True))),
+        "held_suarez": dict(schemes=("held_suarez",)),
+        "RJ_simple_physics": dict(schemes=("RJ_simple_physics",)),
+    }
+    for label, kw in alone.items():
+        t0 = PHYSICS_ALONE_TIMES[label]
+        outs = []
+        for c, st in zip(p_cases, stepped):
+            ph = pdemo.make_physics(c.grid, **kw)
+            st = ph(ph(st, t0), t0 + ddemo.TIMESTEP)
+            outs.append({**{f: getattr(st, f) for f in PHYSICS_FIELDS},
+                         **surface_fields(ph.surface_state)})
+        check_physics_f64(f"Physics {label}, two calls from t = {t0:.0f} s", *outs)
+    log(f"[wall] the C24 f64 checks of the radiation, surface, Held-Suarez and RJ physics took "
+        f"{time.perf_counter() - t_phys:.1f} s")
+    del p_cases, p_card, p_cpu, stepped, e_phys, e_card, e_cpu, outs
     # the step with the saturation adjustment and the cloud fraction
     s_cases = [ddemo.build_case(device=d, do_sat_adj=True, do_qa=True, **small)
                for d in (dev, "cpu")]
@@ -1938,7 +2069,19 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                                 DynamicalCoreConfig(npz=npz, **HYDROSTATIC_STEP_CONFIG),
                                 timestep=HYDROSTATIC_STEP_DT)
     h_out, h_launches = run_steps("step hydrostatic", h_case, HYDROSTATIC_STEP_LAUNCHES)
-    del h_case
+    # Held-Suarez behind the same step, as held_suarez_c24.yaml runs it: cell
+    # 5's run goes on with the forcing after each step
+    t_phys = time.perf_counter()
+    hs_case = pdemo.PhysicsCase(
+        **{f.name: getattr(h_case, f.name) for f in dataclasses.fields(h_case)},
+        physics=pdemo.make_physics(h_case.grid, schemes=("held_suarez",),
+                                   timestep=HYDROSTATIC_STEP_DT))
+    hs_out, hs_launches = run_steps("step held_suarez", hs_case, HYDROSTATIC_STEP_LAUNCHES,
+                                    runner=pdemo.run)
+    log(f"[step held_suarez] physics call {hs_out['physics_ms_per_step']:.3f} ms/step of wall "
+        f"time within {hs_out['ms_per_step']:.3f} ms/step, against {h_out['ms_per_step']:.3f} "
+        f"ms/step of [step hydrostatic]; the block took {time.perf_counter() - t_phys:.1f} s")
+    del h_case, hs_case
     # bench.py's configuration with the total-energy fixer on: the same
     # kernels, the same launches a step
     e_case = ddemo.build_case(n, npz, device=dev, dtype=f32, consv_te=1.0)
@@ -1964,10 +2107,6 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         f"{stout['ms_per_step']:.3f} ms/step of [step]")
     # one more call: delp bit for bit, and the state it is given not written
     # (compared as bytes: the ghost columns may hold NaN)
-    def same_bits(a, b):
-        return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
-                                                  b.contiguous().view(torch.uint8))
-
     p_in = p_case.state
     before = {f: getattr(p_in, f).clone() for f in ("u", "v", "w", "delz", "pt", "q", "delp")}
     p_after = p_case.physics(p_in)
@@ -1996,11 +2135,11 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     s_case = ddemo.build_case(n, npz, device=dev, dtype=f32, do_sat_adj=True, do_qa=True)
     s_case.state.q = to_tensor(pdemo.moist_tracers(s_case.state), dev, f32)
     s_groups = {"water": water, **{nm: k for nm, k in dry_tracers.items() if nm != "qcld"}}
-    s_out, s_launches = run_steps("step sat_adj", s_case, STEP_LAUNCHES, warm=1, timed=1,
-                                  tracer_groups=s_groups)
+    sa_out, sa_launches = run_steps("step sat_adj", s_case, STEP_LAUNCHES, warm=1, timed=1,
+                                    tracer_groups=s_groups)
     qcld = s_case.state.q[:, names.index("qcld"), :, 3:-3, 3:-3]
     qcld_range = (float(qcld.min()), float(qcld.max()))
-    log(f"[step sat_adj] {s_out['ms_per_step']:.3f} ms/step of wall time against "
+    log(f"[step sat_adj] {sa_out['ms_per_step']:.3f} ms/step of wall time against "
         f"{stout['ms_per_step']:.3f} ms/step of [step]; qcld in [{qcld_range[0]:.4f}, "
         f"{qcld_range[1]:.4f}] (allowed [0, 1])")
     if not 0.0 <= qcld_range[0] <= qcld_range[1] <= 1.0:
@@ -2057,6 +2196,161 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         f"time {ms(pstep_dev)} against {ms(step_dev)} of [step]")
     del p_case, p_in
 
+    # ------------------------------------------------------------------
+    # 6. the rest of the physics, after the earlier paths' cases are freed:
+    #    earthlike_c24.yaml's physics behind the dycore step, Held-Suarez
+    #    behind the hydrostatic step, three physics calls alone
+    # ------------------------------------------------------------------
+    del step_case, out, cout, nout, sout
+    torch.cuda.empty_cache()
+    t_phys = time.perf_counter()
+    el_case = pdemo.build_case(n, npz, device=dev, dtype=f32, **pdemo.EARTHLIKE)
+    el_out, el_launches = run_steps("step earthlike", el_case, STEP_LAUNCHES, runner=pdemo.run,
+                                    tracer_groups=dry_tracers)
+    el_ph = el_case.physics
+    log(f"[step earthlike] physics call {el_out['physics_ms_per_step']:.3f} ms/step of wall "
+        f"time (ms: {', '.join(f'{t:.3f}' for t in el_out['physics_ms'])}) within "
+        f"{el_out['ms_per_step']:.3f} ms/step of the whole step, against "
+        f"{stout['ms_per_step']:.3f} ms/step of [step] and {p_out['physics_ms_per_step']:.3f} "
+        f"ms of [step physics]'s physics call")
+    # the surface after three calls, on the compute domain
+    sfc = el_ph.surface_state
+    lsm_cfg, _ = el_ph._surface.cfg
+    diag = el_ph._surface.diagnostics(sfc)
+    tskin = ring(diag["tskin"], 3)
+    h_ice = ring(sfc.ice.h_ice, 3)
+    smc = ring(sfc.lsm.smc, 3)
+    land = ~torch.isnan(ring(diag["soil_moisture"], 3))
+    lat = ring(el_case.grid.lat_agrid, 3)
+    band_cells = int((lat.abs() <= math.radians(el_ph.surface_config.land_lat_max)).sum())
+    log(f"[step earthlike] surface after {el_case.time_seconds:.0f} s: tskin in "
+        f"[{float(tskin.min()):.3f}, {float(tskin.max()):.3f}] K (allowed {TSKIN_RANGE}), h_ice "
+        f"in [{float(h_ice.min()):.4f}, {float(h_ice.max()):.4f}] m, soil moisture in "
+        f"[{float(smc.min()):.4f}, {float(smc.max()):.4f}] (allowed [0, {lsm_cfg.smcmax}]), "
+        f"carried precipitation up to {float(ring(sfc.precip, 3).max()):.4e} kg/m^2/s; land "
+        f"cells {int(land.sum())} of {land.numel()}, cells with |lat| <= "
+        f"{el_ph.surface_config.land_lat_max} deg {band_cells}")
+    failures = []
+    if not (bool(torch.isfinite(tskin).all())
+            and TSKIN_RANGE[0] <= float(tskin.min()) <= float(tskin.max()) <= TSKIN_RANGE[1]):
+        failures.append(f"tskin range [{float(tskin.min())}, {float(tskin.max())}]")
+    if not float(h_ice.min()) >= 0.0:
+        failures.append(f"h_ice min {float(h_ice.min())}")
+    if not 0.0 <= float(smc.min()) <= float(smc.max()) <= lsm_cfg.smcmax:
+        failures.append(f"soil moisture range [{float(smc.min())}, {float(smc.max())}]")
+    if int(land.sum()) != band_cells:
+        failures.append(f"land cells {int(land.sum())}, |lat| <= max cells {band_cells}")
+    # one more call: delp bit for bit, and neither the state nor the surface
+    # state it is given written
+    el_in, sfc_in = el_case.state, sfc
+    before = {f: getattr(el_in, f).clone() for f in ("u", "v", "w", "delz", "pt", "q", "delp")}
+    sfc_before = {k: v.clone() for k, v in surface_fields(sfc_in).items()}
+    el_after = el_ph(el_in, el_case.time_seconds)
+    delp_same = same_bits(el_after.delp, before["delp"])
+    written = ([f for f, t in before.items() if not same_bits(getattr(el_in, f), t)]
+               + [k for k, t in sfc_before.items() if not same_bits(surface_fields(sfc_in)[k], t)])
+    log(f"[step earthlike] the physics call leaves delp bit for bit: {delp_same}; fields of its "
+        f"input state and surface state written: {written or 'none'}")
+    if not delp_same or written:
+        failures.append(f"delp kept {delp_same}, input fields written {written}")
+    del el_after, before, sfc_before
+    # one gray radiation call on the advanced state (the skin of the
+    # surface), its column energy and its OLR
+    rcfg = el_ph.radiation_config
+    s2 = rad.sin_latitude(el_case.grid.f0) ** 2
+    t_surf = el_ph._surface.tskin(sfc)
+    t_lay = el_in.pt * el_in.pkz
+    pt_r, _ = rad.gray_radiation_step_fluxes(el_in.pt, el_in.pkz, el_in.pe, el_in.ps, s2,
+                                             ddemo.TIMESTEP, rcfg, t_surf=t_surf)
+    up, down = rad.lw_fluxes(t_lay, rad.optical_depth(el_in.pe, el_in.ps, s2, rcfg), t_surf)
+    column_closure("[step earthlike] gray radiation", pt_r.double() * el_in.pkz.double()
+                   - t_lay.double(), el_in.pe, down - up, ddemo.TIMESTEP, t_lay,
+                   constants.CP_AIR, constants.GRAV)
+    olr = ring(up[:, 0], 3)
+    log(f"[step earthlike] gray OLR in [{float(olr.min()):.3f}, {float(olr.max()):.3f}] W/m^2 "
+        f"(allowed {OLR_RANGE})")
+    if not OLR_RANGE[0] <= float(olr.min()) <= float(olr.max()) <= OLR_RANGE[1]:
+        failures.append(f"gray OLR range [{float(olr.min())}, {float(olr.max())}]")
+    if failures:
+        raise AssertionError("[step earthlike] checks failed: " + "; ".join(failures))
+    del pt_r, up, down, t_lay, t_surf, s2, diag
+
+    def earthlike_step():
+        el_case.state = el_ph(el_case.core.step_dynamics(el_case.state), el_case.time_seconds)
+        el_case.time_seconds += el_case.core.timestep
+
+    elstep_dev = profile_steps("dycore step earthlike", earthlike_step, el_out["ms_per_step"],
+                               top=15, calls=1)
+    el_in, el_stats = el_case.state, {}
+    el_dev = profile_steps("earthlike physics call", lambda: el_ph(el_in, el_case.time_seconds),
+                           el_out["physics_ms_per_step"], top=20, calls=1, stats=el_stats)
+    log(f"[step earthlike] physics call: device time {ms(el_dev)} against "
+        f"{el_out['physics_ms_per_step']:.3f} ms of wall time, {el_stats.get('launches')} device "
+        f"launches (kernels, copies and sets) a call; the step with the physics: device time "
+        f"{ms(elstep_dev)} against {ms(step_dev)} of [step]")
+
+    # three physics calls alone on the advanced state: warm (the surface
+    # state is built), then one timed call and one under the profiler
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    alone = {"band_radiation, land": dict(schemes=("band_radiation",),
+                                          surface_config=SurfaceConfig(type="land")),
+             "aquaplanet_c24.yaml's set": pdemo.AQUAPLANET,
+             "RJ_simple_physics": dict(schemes=("RJ_simple_physics",))}
+    failures = []
+    for label, kw in alone.items():
+        ph = pdemo.make_physics(el_case.grid, **kw)
+        ph(el_in, el_case.time_seconds)
+        res = {}
+        w_ms = wall_ms(lambda: res.update(out=ph(el_in, el_case.time_seconds)))
+        stats = {}
+        d_ms = profile_steps(f"{label} physics call", lambda: ph(el_in, el_case.time_seconds),
+                             w_ms, top=8, calls=1, stats=stats)
+        finite = all(bool(torch.isfinite(ring(getattr(res["out"], f), 3)).all())
+                     for f in PHYSICS_FIELDS)
+        log(f"[physics alone] {label} at C{n} npz={npz} f32: {w_ms:.3f} ms of wall time, device "
+            f"time {ms(d_ms)}, {stats.get('launches')} device launches a call; finite {finite}")
+        if not finite:
+            failures.append(f"{label}: non-finite fields")
+        if label.startswith("band"):
+            bcfg = ph.band_radiation_config
+            qv = el_in.q[:, names.index("qvapor")]
+            qc = el_in.q[:, names.index("qliquid")] + el_in.q[:, names.index("qice")]
+            t_lay = el_in.pt * el_in.pkz
+            t_surf = ph._surface.tskin(ph.surface_state)
+            pt_b, _, _ = band.band_radiation_step_fluxes(
+                el_in.pt, el_in.pkz, el_in.pe, el_in.ps, ddemo.TIMESTEP, bcfg, qv=qv, qc=qc,
+                t_surf=t_surf)
+            delp = el_in.pe[:, 1:] - el_in.pe[:, :-1]
+            dtau = band.lw_band_optical_depths(qv, qc, 0.5 * (el_in.pe[:, 1:] + el_in.pe[:, :-1]),
+                                               delp, bcfg)
+            up, down = band.lw_band_fluxes(t_lay, dtau, t_surf)
+            sw, _ = band.sw_fluxes(qv, qc, delp, torch.full_like(el_in.ps, bcfg.cos_zenith_mean),
+                                   bcfg)
+            column_closure(f"[physics alone] {label} LW+SW", pt_b.double() * el_in.pkz.double()
+                           - t_lay.double(), el_in.pe, sw + down - up, ddemo.TIMESTEP, t_lay,
+                           constants.CP_AIR, constants.GRAV)
+            olr = ring(up[:, 0], 3)
+            log(f"[physics alone] {label} OLR in [{float(olr.min()):.3f}, {float(olr.max()):.3f}]"
+                f" W/m^2 (allowed {OLR_RANGE})")
+            if not OLR_RANGE[0] <= float(olr.min()) <= float(olr.max()) <= OLR_RANGE[1]:
+                failures.append(f"band OLR range [{float(olr.min())}, {float(olr.max())}]")
+            del pt_b, dtau, up, down, sw
+        del ph, res
+    if failures:
+        raise AssertionError("physics calls alone: " + "; ".join(failures))
+    log(f"[step earthlike] peak memory of the physics slice "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del el_case, el_in, el_ph, sfc, sfc_in
+    torch.cuda.empty_cache()
+
+    log(f"[wall] section 6 (the rest of the physics) took {time.perf_counter() - t_phys:.1f} s")
+
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
         "fvtp2d": ("pace_tpu_torch/csrc/fvtp2d.cu", "pace_tpu/ops/fvtp2d_pallas.py:135"),
@@ -2083,7 +2377,9 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                    "dycore_step_hydrostatic": h_launches[name],
                    "dycore_step_consv_te": e_launches[name],
                    "dycore_step_physics": p_launches[name],
-                   "dycore_step_sat_adj": s_launches[name]}
+                   "dycore_step_sat_adj": sa_launches[name],
+                   "dycore_step_earthlike": el_launches[name],
+                   "dycore_step_held_suarez": hs_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -9,11 +9,13 @@ pkz / (1 + zvir qv) and rebuilds ``pt`` with the updated vapor. Wind
 tendencies go through :func:`apply_wind_tendencies`, which projects the
 A-grid tendency vectors onto the D-grid points.
 
-Ported schemes: ``GFS_microphysics``, ``GFS_PBL``, ``GFS_shallow_convection``
-and ``GFS_deep_convection``, and the dry convective adjustment
-(``fv_sg_adj``). :class:`Physics` refuses the schemes, the interactive
-surface and the checkpointer that are not ported, rather than skipping them.
-The call runs eagerly and never writes into the state it is given.
+Every scheme of ``PHYSICS_PACKAGES`` is ported (the GFDL microphysics, the
+EDMF PBL, shallow and deep SAS convection, gray and band radiation,
+Held-Suarez and the Reed-Jablonowski simple physics), with the dry
+convective adjustment (``fv_sg_adj``) and the interactive surfaces of
+``surface.py``, whose state :class:`Physics` carries from call to call.
+:class:`Physics` refuses a stage checkpointer, which is not ported. The call
+runs eagerly and never writes into the state it is given.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ... import constants
@@ -28,19 +31,21 @@ from ...constants import TRACER_NAMES
 from ...ops.d2a2c import _dot3, cartesian_wind_centers, centers_to_x_ifaces, centers_to_y_ifaces
 from ...ops.stencil_utils import bcast_k
 from ..fv3.state import DycoreState
+from .band_radiation import BandRadiationConfig, band_radiation_step_fluxes
+from .held_suarez import HeldSuarezConfig, held_suarez_step
 from .microphysics import MicrophysicsConfig, microphysics_step
 from .pbl import PBLConfig, pbl_step
+from .radiation import (GrayRadiationConfig, gray_radiation_step_fluxes, sin_latitude,
+                        sw_down_surface)
 from .sas import DeepConvectionConfig, ShallowConvectionConfig, sas_step
-from .surface import SurfaceConfig
+from .simple_physics import SimplePhysicsConfig, simple_physics_step
+from .surface import SurfaceConfig, build_surface
 
 PHYSICS_PACKAGES = (
     "GFS_microphysics", "GFS_PBL", "GFS_shallow_convection",
     "GFS_deep_convection", "held_suarez", "gray_radiation",
     "band_radiation", "RJ_simple_physics",
 )
-
-#: schemes of PHYSICS_PACKAGES whose modules are not ported yet
-UNPORTED_SCHEMES = ("held_suarez", "gray_radiation", "band_radiation", "RJ_simple_physics")
 
 _IQ = {name: i for i, name in enumerate(TRACER_NAMES)}
 
@@ -195,18 +200,22 @@ def apply_wind_tendencies(u, v, u_dt, v_dt, grid, dt: float, halo=None):
 
 
 class Physics:
-    """Reference ``pySHiELD.Physics``: the ported schemes in ``pace_tpu``'s
-    order (dry adjustment, PBL, deep then shallow convection, microphysics)
-    on the dycore state.
+    """Reference ``pySHiELD.Physics``: the schemes in ``pace_tpu``'s order
+    (dry adjustment, RJ simple physics, Held-Suarez, gray then band
+    radiation, the interactive surface, PBL, deep then shallow convection,
+    microphysics) on the dycore state.
 
     Usage::
 
-        physics = Physics(grid, ("GFS_microphysics", "GFS_PBL"), 200.0)
-        state = physics(state)
+        physics = Physics(grid, ("gray_radiation", "GFS_PBL", "GFS_microphysics"), 200.0,
+                          surface_config=SurfaceConfig(type="land"))
+        state = physics(state, time_seconds)
 
-    ``radiation_config``, ``held_suarez_config`` and ``band_radiation_config``
-    are taken for ``pace_tpu``'s signature; only the refused schemes read
-    them.
+    With an interactive surface (``surface_config.type`` other than
+    ``"none"``), ``surface_state`` holds the surface's state between calls:
+    built at the first call on the state's device, replaced (not written)
+    by each call, with the precipitation rate of the call's microphysics and
+    deep convection for the next.
     """
 
     def __init__(self, grid, schemes, timestep: float, config=None, fv_sg_adj: float = 0.0,
@@ -216,15 +225,6 @@ class Physics:
         for s in schemes:
             if s not in PHYSICS_PACKAGES:
                 raise ValueError(f"unknown physics scheme {s!r}; available: {PHYSICS_PACKAGES}")
-        unported = [s for s in schemes if s in UNPORTED_SCHEMES]
-        if unported:
-            raise NotImplementedError(
-                f"physics schemes {unported} are not ported yet (ROADMAP queue 1 item 5)")
-        surface_config = surface_config if surface_config is not None else SurfaceConfig()
-        if surface_config.type != "none":
-            raise NotImplementedError(
-                f"the interactive surface {surface_config.type!r} is not ported yet (ROADMAP "
-                "queue 1 item 5)")
         if checkpointer is not None:
             raise NotImplementedError(
                 "stage checkpointers are not ported yet (ROADMAP queue 1 item 6)")
@@ -232,36 +232,119 @@ class Physics:
         self.timestep = float(timestep)
         self.config = config or MicrophysicsConfig()
         self.pbl_config = pbl_config if pbl_config is not None else PBLConfig()
+        self.radiation_config = (radiation_config if radiation_config is not None
+                                 else GrayRadiationConfig())
         self.sas_config = sas_config if sas_config is not None else ShallowConvectionConfig()
         self.deep_config = deep_config if deep_config is not None else DeepConvectionConfig()
-        self.surface_config = surface_config
+        self.held_suarez_config = (held_suarez_config if held_suarez_config is not None
+                                   else HeldSuarezConfig())
+        self.band_radiation_config = (band_radiation_config if band_radiation_config is not None
+                                      else BandRadiationConfig())
+        self.simple_physics_config = SimplePhysicsConfig()
         self.halo = halo  # for the tendency halo update (None = zero halos)
         self.grid = grid
         self.fv_sg_adj = float(fv_sg_adj)
+        self.surface_config = surface_config if surface_config is not None else SurfaceConfig()
+        self._surface = build_surface(self.surface_config, grid=lambda: self.grid)
+        self.surface_state = None
 
     def __call__(self, state: DycoreState, time_seconds: float = 0.0) -> DycoreState:
         """The state after the physics of one ``timestep``; ``state`` is not
-        written. ``time_seconds`` is taken for ``pace_tpu``'s signature (only
-        the unported radiation reads it)."""
+        written. ``time_seconds``, the model time, is held as float32, as
+        ``pace_tpu`` holds it (the diurnal and seasonal insolation read it)."""
+        t = np.float32(time_seconds)
+        if self._surface is None:
+            return self._call_impl(state, None, t)[0]
+        if self.surface_state is None:
+            self.surface_state = self._surface.init(state.ps.shape, state.ps.dtype,
+                                                    device=state.ps.device)
+        state, self.surface_state = self._call_impl(state, self.surface_state, t)
+        return state
+
+    def _call_impl(self, state: DycoreState, sfc, time_seconds):
         if self.fv_sg_adj > 0.0:
             pt_adj, q_adj = dry_convective_adjustment(state.pt, state.q, state.delp,
                                                       self.timestep, self.fv_sg_adj)
             state = dataclasses.replace(state, pt=pt_adj, q=q_adj)
+        if "RJ_simple_physics" in self.schemes:
+            state = self._simple_physics(state)
+        if "held_suarez" in self.schemes:
+            u_new, v_new, pt_new = held_suarez_step(
+                state.u, state.v, state.pt, state.pkz, _p_mid(state), state.ps, self.grid.f0,
+                self.timestep, self.held_suarez_config)
+            state = dataclasses.replace(state, u=u_new, v=v_new, pt=pt_new)
+        # --- radiation (also supplies the surface's downward fluxes)
+        lw_dn_sfc = sw_dn_sfc = None
+        t_surf = self._surface.tskin(sfc) if sfc is not None else None
+        if "gray_radiation" in self.schemes:
+            cfg = self.radiation_config
+            sinlat = sin_latitude(self.grid.f0)
+            pt_new, lw_dn_sfc = gray_radiation_step_fluxes(
+                state.pt, state.pkz, state.pe, state.ps, sinlat * sinlat, self.timestep, cfg,
+                t_surf=t_surf, qv=state.q[:, _IQ["qvapor"]])
+            sw_dn_sfc = sw_down_surface(
+                sinlat * sinlat, cfg, lat=self.grid.lat_agrid, lon=self.grid.lon_agrid,
+                time_seconds=time_seconds).expand(state.ps.shape)
+            state = dataclasses.replace(state, pt=pt_new)
+        if "band_radiation" in self.schemes:
+            qc = state.q[:, _IQ["qliquid"]] + state.q[:, _IQ["qice"]]
+            pt_new, lw_dn_sfc, sw_dn_sfc = band_radiation_step_fluxes(
+                state.pt, state.pkz, state.pe, state.ps, self.timestep,
+                self.band_radiation_config, qv=state.q[:, _IQ["qvapor"]], qc=qc, t_surf=t_surf)
+            state = dataclasses.replace(state, pt=pt_new)
+        # --- the interactive lower boundary: its fluxes drive the PBL and
+        # the convection
+        shf = lhf = None
+        if sfc is not None:
+            forcing = self._surface_forcing(state, sw_dn_sfc, lw_dn_sfc, sfc)
+            fluxes, sfc = self._surface.step(forcing, sfc, self.timestep)
+            shf = fluxes["sensible_heat_flux"]
+            lhf = fluxes["latent_heat_flux"]
         if "GFS_PBL" in self.schemes:
-            state = self._pbl(state)
+            state = self._pbl(state, shf, lhf)
+        conv_precip = None
         if "GFS_deep_convection" in self.schemes:
-            state, _conv_precip = self._sas(state, self.deep_config)
+            state, conv_precip = self._sas(state, self.deep_config, shf, lhf)
         if "GFS_shallow_convection" in self.schemes:
-            state, _ = self._sas(state, self.sas_config)
+            state, _ = self._sas(state, self.sas_config, shf, lhf)
         if "GFS_microphysics" not in self.schemes:
-            return state
+            if sfc is not None and conv_precip is not None:
+                sfc = dataclasses.replace(sfc, precip=conv_precip)
+            return state, sfc
         phy = dycore_to_physics(state)
         qv, ql, qi, qr, qs, qg, t, precip = microphysics_step(
             phy.qvapor, phy.qliquid, phy.qice, phy.qrain, phy.qsnow, phy.qgraupel, phy.pt,
             phy.p_mid, phy.delp, self.timestep, self.config)
         phy = dataclasses.replace(phy, qvapor=qv, qliquid=ql, qice=qi, qrain=qr, qsnow=qs,
                                   qgraupel=qg, pt=t, precip=precip)
-        return update_atmosphere_state(state, phy)
+        if sfc is not None:
+            # this call's precipitation rate (microphysics and deep
+            # convection) for the next call's surface
+            rate = precip / self.timestep
+            if conv_precip is not None:
+                rate = rate + conv_precip
+            sfc = dataclasses.replace(sfc, precip=rate)
+        return update_atmosphere_state(state, phy), sfc
+
+    def _surface_forcing(self, state: DycoreState, sw_dn, lw_dn, sfc):
+        """The lowest model level's forcing of ``lsm_step`` / ``seaice_step``;
+        the surface config's constant radiation where no radiation scheme
+        gives it."""
+        qv1 = state.q[:, _IQ["qvapor"], -1, :, :]
+        t1 = state.pt[..., -1, :, :] * state.pkz[..., -1, :, :] / (1.0 + constants.ZVIR * qv1)
+        ua, va = self._a_grid_winds(state)
+        wind1 = torch.sqrt(ua[..., -1, :, :] ** 2 + va[..., -1, :, :] ** 2)
+        pe_b = state.pe[..., -1, :, :]
+        pe_a = state.pe[..., -2, :, :]
+        tv1 = t1 * (1.0 + constants.ZVIR * qv1)
+        z1 = 0.5 * constants.RDGAS * tv1 / constants.GRAV * torch.log(pe_b / pe_a)
+        cfg = self.surface_config
+        if sw_dn is None:
+            sw_dn = torch.full_like(t1, cfg.sw_dn)
+        if lw_dn is None:
+            lw_dn = torch.full_like(t1, cfg.lw_dn)
+        return dict(t1=t1, qv1=qv1, wind1=wind1, z1=z1, p_sfc=pe_b, sw_dn=sw_dn, lw_dn=lw_dn,
+                    precip=sfc.precip)
 
     def _a_grid_winds(self, state: DycoreState):
         """Contravariant A-grid winds from the D-grid state (d2a2c center leg)."""
@@ -275,6 +358,23 @@ class Physics:
         va = (v_cov - u_cov * cosa_s) * rsin2
         return ua, va
 
+    def _apply_column_update(self, state, u_dt, v_dt, t_new, new_tracers):
+        """The state with a column scheme's A-grid wind tendencies projected
+        onto the D grid, its temperature as theta_v and its tracers."""
+        u_new, v_new = apply_wind_tendencies(state.u, state.v, u_dt, v_dt, self.grid,
+                                             self.timestep, halo=self.halo)
+        pt_new = t_new * (1.0 + constants.ZVIR * new_tracers["qvapor"]) / state.pkz
+        return dataclasses.replace(state, u=u_new, v=v_new, pt=pt_new,
+                                   q=_with_tracers(state.q, new_tracers))
+
+    def _simple_physics(self, state: DycoreState) -> DycoreState:
+        ua, va = self._a_grid_winds(state)
+        qv = state.q[:, _IQ["qvapor"]]
+        u_dt, v_dt, t_new, qv_new, _precip = simple_physics_step(
+            ua, va, _temperature(state, qv), qv, state.pe, _p_mid(state), state.delp,
+            state.phis, self.timestep, self.simple_physics_config)
+        return self._apply_column_update(state, u_dt, v_dt, t_new, {"qvapor": qv_new})
+
     def _pbl(self, state: DycoreState, shf=None, lhf=None) -> DycoreState:
         ua, va = self._a_grid_winds(state)
         qv = state.q[:, _IQ["qvapor"]]
@@ -282,11 +382,7 @@ class Physics:
             ua, va, _temperature(state, qv), qv, state.pe, _p_mid(state), state.delp,
             state.phis, self.timestep, self.pbl_config,
             sensible_heat_flux=shf, latent_heat_flux=lhf)
-        u_new, v_new = apply_wind_tendencies(state.u, state.v, u_dt, v_dt, self.grid,
-                                             self.timestep, halo=self.halo)
-        pt_new = t_new * (1.0 + constants.ZVIR * qv_new) / state.pkz
-        return dataclasses.replace(state, u=u_new, v=v_new, pt=pt_new,
-                                   q=_with_tracers(state.q, {"qvapor": qv_new}))
+        return self._apply_column_update(state, u_dt, v_dt, t_new, {"qvapor": qv_new})
 
     def _sas(self, state: DycoreState, cfg, shf=None, lhf=None):
         """One SAS mass-flux pass (shallow or deep per ``cfg.mode``); returns
@@ -297,8 +393,5 @@ class Physics:
         u_dt, v_dt, t_new, qv_new, ql_new, precip = sas_step(
             ua, va, _temperature(state, qv), qv, ql, state.pe, _p_mid(state), state.delp,
             self.timestep, cfg, sensible_heat_flux=shf, latent_heat_flux=lhf)
-        u_new, v_new = apply_wind_tendencies(state.u, state.v, u_dt, v_dt, self.grid,
-                                             self.timestep, halo=self.halo)
-        pt_new = t_new * (1.0 + constants.ZVIR * qv_new) / state.pkz
-        q_new = _with_tracers(state.q, {"qvapor": qv_new, "qliquid": ql_new})
-        return dataclasses.replace(state, u=u_new, v=v_new, pt=pt_new, q=q_new), precip
+        return self._apply_column_update(state, u_dt, v_dt, t_new,
+                                         {"qvapor": qv_new, "qliquid": ql_new}), precip

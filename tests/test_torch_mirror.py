@@ -77,5 +77,13 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.models.shield.surface",
         "pace_tpu_torch.models.shield.physics",
         "pace_tpu_torch.demos.physics_step",
+        "pace_tpu_torch.utils",
+        "pace_tpu_torch.utils.registry",
+        "pace_tpu_torch.models.shield.radiation",
+        "pace_tpu_torch.models.shield.band_radiation",
+        "pace_tpu_torch.models.shield.lsm",
+        "pace_tpu_torch.models.shield.seaice",
+        "pace_tpu_torch.models.shield.held_suarez",
+        "pace_tpu_torch.models.shield.simple_physics",
     }
     assert expected <= set(result["modules"])

@@ -8,21 +8,30 @@ baroclinic-wave state at C12 npz=8 with the tracer block of
 ``demos.physics_step.moist_tracers``, float64. ``Physics`` runs
 ``bench.py``'s schemes (GFDL microphysics and PBL), those of
 ``examples/configs/baroclinic_c12_physics.yaml`` (with shallow convection and
-its surface fluxes), and deep convection with the dry adjustment; then one
-nonhydrostatic ``step_dynamics`` of the dycore benchmark's flags (k_split=2,
-n_split=2) followed by the yaml's ``Physics``, held on the compute domain as
+its surface fluxes), and deep convection with the dry adjustment; then the
+physics of each example config with a physics section (earthlike,
+aquaplanet, terraplanet, gray_aquaplanet, held_suarez), built from its yaml
+as ``pace_tpu``'s driver builds it, and band radiation over land, the RJ
+simple physics and the aquaplanet with the diurnal and seasonal insolation,
+each over two calls so that the surface state and the precipitation carry
+(held with the state). Then one nonhydrostatic ``step_dynamics`` of the
+dycore benchmark's flags (k_split=2, n_split=2) followed by the c12 yaml's
+and by earthlike's ``Physics``, held on the compute domain as
 ``tests/test_torch_dycore.py`` holds the step. Tolerance: rtol 1e-12 with
 atol 1e-12 of each field's scale. Then the configurations' fields and
-defaults, each refusal, and the oracle properties of
+defaults, the refusal of a checkpointer, and the oracle properties of
 ``tests/main/test_physics.py`` on the port's side.
 """
 
 import dataclasses
+import os
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from pace_tpu import constants as jconstants
 from pace_tpu.grid.generation import GridSpec as JGridSpec
@@ -30,11 +39,18 @@ from pace_tpu.grid.generation import MetricTerms as JMetricTerms
 from pace_tpu.grid.grid_data import GridData as JGridData
 from pace_tpu.models.fv3 import dycore as jdycore
 from pace_tpu.models.fv3.state import DycoreState as JDycoreState
+from pace_tpu.models.shield import band_radiation as jband
+from pace_tpu.models.shield import held_suarez as jhs
+from pace_tpu.models.shield import lsm as jlsm
 from pace_tpu.models.shield import microphysics as jmp
 from pace_tpu.models.shield import pbl as jpbl
 from pace_tpu.models.shield import physics as jphys
+from pace_tpu.models.shield import radiation as jrad
 from pace_tpu.models.shield import sas as jsas
+from pace_tpu.models.shield import seaice as jice
+from pace_tpu.models.shield import simple_physics as jrj
 from pace_tpu.models.shield import surface as jsurface
+from pace_tpu.utils import registry as jreg
 from pace_tpu_torch.constants import TRACER_NAMES
 from pace_tpu_torch.demos import dycore_step as ddemo
 from pace_tpu_torch.demos import physics_step as pdemo
@@ -42,11 +58,18 @@ from pace_tpu_torch.grid.generation import GridSpec, MetricTerms
 from pace_tpu_torch.grid.grid_data import GridData
 from pace_tpu_torch.models.fv3 import dycore
 from pace_tpu_torch.models.fv3.state import DycoreState
+from pace_tpu_torch.models.shield import band_radiation as tband
+from pace_tpu_torch.models.shield import held_suarez as ths
+from pace_tpu_torch.models.shield import lsm as tlsm
 from pace_tpu_torch.models.shield import microphysics as tmp
 from pace_tpu_torch.models.shield import pbl as tpbl
 from pace_tpu_torch.models.shield import physics as tphys
+from pace_tpu_torch.models.shield import radiation as trad
 from pace_tpu_torch.models.shield import sas as tsas
+from pace_tpu_torch.models.shield import seaice as tice
+from pace_tpu_torch.models.shield import simple_physics as trj
 from pace_tpu_torch.models.shield import surface as tsurface
+from pace_tpu_torch.utils import registry as treg
 
 N, NPZ, H = 12, 8, 3
 RTOL = 1e-12
@@ -198,9 +221,10 @@ def test_physics_call_matches(setup, case):
     assert float((got.pt - setup["tstate"].pt)[..., H:-H, H:-H].abs().max()) < 50.0
 
 
-def test_step_then_physics_matches(setup):
+@pytest.fixture(scope="module")
+def stepped(setup):
     """One nonhydrostatic dycore step (the benchmark's flags, k_split=2,
-    n_split=2) and the yaml's physics after it, on the compute domain."""
+    n_split=2) in pace_tpu and in the port, from the moist state."""
     cfg = ddemo.bench_config(NPZ, k_split=2, n_split=2, **ddemo.STABLE_DAMPING)
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     jcore = jdycore.DynamicalCore(setup["jgrid"], setup["jhalo"],
@@ -208,15 +232,16 @@ def test_step_then_physics_matches(setup):
     tcore = dycore.DynamicalCore(setup["tgrid"], setup["thalo"], dycore.DynamicalCoreConfig(**kw),
                                  timestep=DT)
     jstate = dataclasses.replace(setup["jstate"], q_con=jnp.zeros_like(setup["jstate"].delp))
-    want = _physics(jphys, jsas, setup["jgrid"], "c12 physics yaml")(
-        jcore.step_dynamics(jstate))
-    got = _physics(tphys, tsas, setup["tgrid"], "c12 physics yaml")(
-        tcore.step_dynamics(setup["tstate"]))
     delp = _interior(jstate.delp)
     pe_max = float(setup["jgrid"].ptop + delp.sum(axis=1).max())
     dt = DT / 4
     p_err = pe_max * dt / (float(delp.min()) / jconstants.GRAV)
-    scales = {"w": p_err, "delz": p_err * dt}
+    return dict(jstate=jcore.step_dynamics(jstate), tstate=tcore.step_dynamics(setup["tstate"]),
+                scales={"w": p_err, "delz": p_err * dt})
+
+
+def _close_step(got, want, scales):
+    """The state after a step and a physics call, on the compute domain."""
     for name in ("u", "v", "w", "delz", "delp", "pt", "q", "ps", "pkz"):
         a, b = getattr(got, name), np.asarray(getattr(want, name))
         a = a[..., H:a.shape[-2] - H, H:a.shape[-1] - H]
@@ -224,14 +249,133 @@ def test_step_then_physics_matches(setup):
         _close(a, b, name, scale=max(np.abs(b).max(), scales.get(name, 0.0)))
 
 
+def test_step_then_physics_matches(setup, stepped):
+    """The dycore step and the physics of baroclinic_c12_physics.yaml after
+    it, on the compute domain."""
+    want = _physics(jphys, jsas, setup["jgrid"], "c12 physics yaml")(stepped["jstate"])
+    got = _physics(tphys, tsas, setup["tgrid"], "c12 physics yaml")(stepped["tstate"])
+    _close_step(got, want, stepped["scales"])
+
+
+def test_step_then_earthlike_physics_matches(setup, stepped):
+    """The dycore step and earthlike_c24.yaml's physics after it (over the
+    step's timestep), with the surface state it leaves."""
+    jp = _example_physics(J, "earthlike", setup["jgrid"], dt=DT)
+    tp = _example_physics(T, "earthlike", setup["tgrid"], dt=DT)
+    _close_step(tp(stepped["tstate"]), jp(stepped["jstate"]), stepped["scales"])
+    _close_surface(tp.surface_state, jp.surface_state, "earthlike")
+
+
 # ----------------------------------------------------------------------
-# configurations and refusals
+# the example configs' physics, each over two calls
+# ----------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the sat-adjustment keys that pace_tpu's driver takes from dycore_config
+#: into the microphysics config (pace_tpu/driver/driver.py)
+SHARED_MP_KEYS = ("tau_l2v", "tau_v2l", "tau_i2s", "tau_g2v", "ql_gen", "ql_mlt", "qs_mlt",
+                  "qi_lim", "dw_ocean", "dw_land", "icloud_f", "do_qa")
+J = SimpleNamespace(from_dict=jreg.from_dict, Physics=jphys.Physics,
+                    dycore=jdycore.DynamicalCoreConfig,
+                    mp=jmp.MicrophysicsConfig, pbl=jpbl.PBLConfig, rad=jrad.GrayRadiationConfig,
+                    sas=jsas.ShallowConvectionConfig, deep=jsas.DeepConvectionConfig,
+                    surface=jsurface.SurfaceConfig, hs=jhs.HeldSuarezConfig,
+                    band=jband.BandRadiationConfig)
+T = SimpleNamespace(from_dict=treg.from_dict, Physics=tphys.Physics,
+                    dycore=dycore.DynamicalCoreConfig,
+                    mp=tmp.MicrophysicsConfig, pbl=tpbl.PBLConfig, rad=trad.GrayRadiationConfig,
+                    sas=tsas.ShallowConvectionConfig, deep=tsas.DeepConvectionConfig,
+                    surface=tsurface.SurfaceConfig, hs=ths.HeldSuarezConfig,
+                    band=tband.BandRadiationConfig)
+#: cases beyond the example configs: (yaml whose physics is changed, the
+#: changes of its physics_config, the two calls' model times)
+EXTRA_CASES = {
+    "band_radiation, land": ("terraplanet", dict(
+        schemes=["band_radiation", "GFS_PBL", "GFS_microphysics"]), (0.0, 450.0)),
+    "RJ_simple_physics": ("held_suarez", dict(schemes=["RJ_simple_physics"]), (0.0, 600.0)),
+    "aquaplanet, diurnal and seasonal": ("aquaplanet", dict(radiation=dict(
+        interactive_vapor=True, diurnal=True, seasonal=True)), (1.5e7 + 123.4, 1.5e7 + 573.4)),
+}
+EXAMPLES = ("earthlike", "aquaplanet", "terraplanet", "gray_aquaplanet", "held_suarez")
+
+
+def _example_physics(m, name, grid, dt=None, **changes):
+    """``Physics`` of examples/configs/{name}_c24.yaml's physics_config
+    (with ``changes``), its fv_sg_adj and dt_atmos (or ``dt``), built as
+    pace_tpu's driver builds it, from ``m``'s package."""
+    with open(os.path.join(ROOT, "examples", "configs", f"{name}_c24.yaml")) as f:
+        doc = yaml.safe_load(f)
+    pc, dc = {**doc["physics_config"], **changes}, doc["dycore_config"]
+    shared = {k: dc.get(k, getattr(m.dycore(), k)) for k in SHARED_MP_KEYS}
+
+    def load(cls, key):
+        return m.from_dict(cls, pc.get(key) or {})
+
+    return m.Physics(
+        grid, tuple(pc["schemes"]), dt or doc["dt_atmos"], fv_sg_adj=dc.get("fv_sg_adj", 0.0),
+        config=m.from_dict(m.mp, {**shared, **(pc.get("microphysics") or {})}),
+        pbl_config=load(m.pbl, "pbl"), radiation_config=load(m.rad, "radiation"),
+        sas_config=load(m.sas, "shallow_convection"), deep_config=load(m.deep, "deep_convection"),
+        surface_config=load(m.surface, "surface"), held_suarez_config=load(m.hs, "held_suarez"),
+        band_radiation_config=load(m.band, "band_radiation"))
+
+
+def _surface_fields(sfc):
+    out = {"precip": sfc.precip}
+    for part in ("lsm", "ice"):
+        sub = getattr(sfc, part)
+        if sub is not None:
+            out.update({f"{part}.{f.name}": getattr(sub, f.name) for f in dataclasses.fields(sub)})
+    return out
+
+
+def _close_surface(got, want, label):
+    assert (got is None) == (want is None), label
+    if got is None:
+        return
+    w = _surface_fields(want)
+    g = _surface_fields(got)
+    assert sorted(g) == sorted(w), label
+    for k in w:
+        _close(g[k][..., H:-H, H:-H], _interior(w[k]), f"{label} surface {k}")
+
+
+@pytest.mark.parametrize("case", EXAMPLES + tuple(EXTRA_CASES))
+def test_example_physics_matches_over_two_calls(setup, case):
+    name, changes, times = EXTRA_CASES.get(case, (case, {}, None))
+    jp = _example_physics(J, name, setup["jgrid"], **changes)
+    tp = _example_physics(T, name, setup["tgrid"], **changes)
+    times = times or (0.0, tp.timestep)
+    js, ts = setup["jstate"], setup["tstate"]
+    for call, t in enumerate(times):
+        ts_in, sfc_in = ts, tp.surface_state
+        before = {f: getattr(ts_in, f).clone() for f in STATE_FIELDS}
+        sfc_before = {k: v.clone() for k, v in _surface_fields(sfc_in).items()} if sfc_in else {}
+        js, ts = jp(js, t), tp(ts, t)
+        label = f"{case} call {call}"
+        for f in STATE_FIELDS:
+            _close(getattr(ts, f)[..., H:-H, H:-H], _interior(getattr(js, f)), f"{label} {f}")
+        _close_surface(tp.surface_state, jp.surface_state, label)
+        # neither the state nor the surface state a call is given is written
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(ts_in, f), before[f]), f"{label} {f} written"
+        for k, v in sfc_before.items():
+            assert torch.equal(_surface_fields(sfc_in)[k], v), f"{label} surface {k} written"
+        assert float(ts.q[..., H:-H, H:-H].min()) > -1e-12
+    if tp.surface_state is not None:
+        assert float(tp.surface_state.precip[..., H:-H, H:-H].max()) > 0.0  # carried
+
+
+# ----------------------------------------------------------------------
+# configurations and the checkpointer's refusal
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cls,jmod,tmod", [
     ("MicrophysicsConfig", jmp, tmp), ("PBLConfig", jpbl, tpbl),
     ("ShallowConvectionConfig", jsas, tsas), ("DeepConvectionConfig", jsas, tsas),
-    ("SurfaceConfig", jsurface, tsurface),
+    ("SurfaceConfig", jsurface, tsurface), ("GrayRadiationConfig", jrad, trad),
+    ("BandRadiationConfig", jband, tband), ("HeldSuarezConfig", jhs, ths),
+    ("SimplePhysicsConfig", jrj, trj), ("LSMConfig", jlsm, tlsm), ("SeaIceConfig", jice, tice),
 ])
 def test_config_fields_and_defaults_are_pace_tpu_s(cls, jmod, tmod):
     """The physics has no weights: its parameters are these fields."""
@@ -244,19 +388,6 @@ def test_registry_and_sat_adjust_config_are_pace_tpu_s():
     kw = dict(tau_v2l=90.0, dw_land=0.15, do_qa=True, icloud_f=1)
     assert (dataclasses.asdict(dycore.DynamicalCoreConfig(**kw).sat_adjust_config())
             == dataclasses.asdict(jdycore.DynamicalCoreConfig(**kw).sat_adjust_config()))
-
-
-@pytest.mark.parametrize("scheme", tphys.UNPORTED_SCHEMES)
-def test_unported_scheme_is_refused(setup, scheme):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        tphys.Physics(setup["tgrid"], ("GFS_microphysics", scheme), DT)
-
-
-@pytest.mark.parametrize("kind", ["land", "seaice", "mixed"])
-def test_interactive_surface_is_refused(setup, kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        tphys.Physics(setup["tgrid"], ("GFS_PBL",), DT,
-                      surface_config=tsurface.SurfaceConfig(type=kind))
 
 
 def test_checkpointer_is_refused(setup):
@@ -292,3 +423,18 @@ def test_demo_seeds_and_runs(setup):
     assert out["physics_ms_per_step"] < out["ms_per_step"]
     assert out["case"].physics.schemes == pdemo.SCHEMES
     assert bool(torch.isfinite(out["case"].state.q[..., H:-H, H:-H]).all())
+
+
+def test_demo_runs_earthlike_with_its_surface():
+    """The demo's earthlike set on the CPU: two steps advance the model time
+    by two timesteps, and the surface state carries across them."""
+    out = pdemo.run(N, 4, warm=0, steps=2, device="cpu", dtype=torch.float64, k_split=1,
+                    n_split=1, **pdemo.EARTHLIKE)
+    case = out["case"]
+    assert case.physics.schemes == pdemo.EARTHLIKE["schemes"]
+    assert case.time_seconds == 2 * ddemo.TIMESTEP
+    sfc = case.physics.surface_state
+    tskin = case.physics._surface.tskin(sfc)[..., H:-H, H:-H]
+    assert bool(torch.isfinite(tskin).all()) and 200.0 < float(tskin.min())
+    assert float(tskin.max()) < 340.0 and float(sfc.precip[..., H:-H, H:-H].max()) > 0.0
+    assert bool(torch.isfinite(case.state.q[..., H:-H, H:-H]).all())

@@ -13,6 +13,7 @@ over the water mass, summed in float64 over the compute domain (the gate of
 Run::
 
     JAX_PLATFORMS=cpu python tools/physics_water_budget.py --impl jax --n 24 --npz 79
+    python tools/physics_water_budget.py --impl torch --n 24 --npz 79               # the card
     python tools/physics_water_budget.py --impl torch --n 24 --npz 79 --device cpu
 """
 
@@ -86,7 +87,8 @@ def main():
     ap.add_argument("--npz", type=int, default=79)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--f64", action="store_true", help="float64 instead of float32")
-    ap.add_argument("--device", default="cpu", help="the port's device")
+    ap.add_argument("--device", default="cuda", help="the port's device (cpu for the plain "
+                    "PyTorch path)")
     args = ap.parse_args()
     if args.impl == "jax":
         rel, m0, p = budget_jax(args.n, args.npz, args.f64, args.seed)
