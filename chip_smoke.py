@@ -125,7 +125,28 @@ Phases (any failure raises and exits non-zero):
    three physics calls alone on ``[step earthlike]``'s state (band radiation over
    land with its LW+SW closure and OLR, ``aquaplanet_c24.yaml``'s set, the
    RJ simple physics: each finite, with its wall and device time and
-   launches).
+   launches);
+7. the driver (``pace_tpu_torch.driver``), after the earlier cases are freed:
+   ``[driver baroclinic_c192]``, the slice's main path:
+   ``examples/configs/baroclinic_c192.yaml`` read by the port's YAML reader
+   and run by ``Driver`` for 20 minutes (6 steps of 200 s, C192 npz=79 f32,
+   all fourteen kernels) with ``STABLE_DAMPING`` and the HaloExchange stage
+   split out, its outputs under ``chiprun_out/driver/``: the safety checks
+   pass, the launches are exactly ``[step]``'s per step (the 6 steps and
+   the stage profile's one), the state is bit-identical to 6 direct
+   ``step_dynamics`` calls from ``DycoreState.from_analytic_init``, the
+   diagnostics hold finite ``ps``, ``ua``, ``va``, ``pt``, ``lat``, ``lon``,
+   ``time``, the performance JSON is written; the mainloop's ms/step and
+   SYPD beside ``[step]``'s, and the stage device times;
+   ``[driver cli earthlike_c24]``: ``python -m pace_tpu_torch.driver.run``
+   on ``earthlike_c24.yaml`` in a subprocess (rc 0, 2 finite records of
+   ``ps``, ``ua``, ``precipitation`` and ``tskin``, tskin in range, the
+   performance JSON); ``[driver f64]``: that yaml cut to C12 npz=8 and 2
+   steps in float64 on the card and on the CPU, every state field, the
+   surface state and the diagnostics' fields within 1e-12 of each field's
+   scale, the stored float32 records within one ulp. The card has no
+   ``h5py``: these phases write NetCDF diagnostics and no restart
+   (``DIAGNOSTICS_FORMAT``).
 
 The last lines are the card's name and power limit (``nvidia-smi``), the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
@@ -138,10 +159,13 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -340,6 +364,14 @@ OLR_RANGE = (150.0, 330.0)
 PHYSICS_ALONE_TIMES = {"band_radiation, land": 0.0, "aquaplanet, diurnal and seasonal": 1.5e7,
                        "held_suarez": 0.0, "RJ_simple_physics": 0.0}
 
+#: the driver phases' diagnostics store: h5py is not installed on the H100
+#: machine (PyYAML and click are; the port needs neither), so they write
+#: NetCDF-3 and no restart, whose files are HDF5 as pace_tpu's are
+DIAGNOSTICS_FORMAT = "netcdf"
+#: [driver baroclinic_c192] runs the yaml for 20 minutes: 6 steps of 200 s,
+#: the yaml's output_frequency of 6 gives one diagnostics record
+DRIVER_C192_MINUTES = 20
+
 
 def log(*a):
     print(*a, flush=True)
@@ -510,7 +542,7 @@ def surface_fields(sfc):
     return out
 
 
-def check_physics_f64(label, card, cpu):
+def check_physics_f64(label, card, cpu, setup="C24 npz=8 f64"):
     """Each field of ``card`` (name -> tensor on the card) within
     STEP_F64_REL_TOL of the largest value of ``cpu``'s on the compute
     domain, or raise."""
@@ -518,11 +550,11 @@ def check_physics_f64(label, card, cpu):
     for nm, y in cpu.items():
         x, y = ring(card[nm].cpu(), 3), ring(y, 3)
         worst[nm] = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
-    log(f"[check] C24 npz=8 f64 {label}, card vs CPU plain path: max diff over each field's "
+    log(f"[check] {setup} {label}, card vs CPU plain path: max diff over each field's "
         "maximum: " + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
     bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
     if bad:
-        raise AssertionError(f"C24 f64 {label} departs from the CPU reference: {bad}")
+        raise AssertionError(f"{setup} {label} departs from the CPU reference: {bad}")
 
 
 def same_bits(a, b):
@@ -569,10 +601,14 @@ def profile_steps(label, step_fn, wall_ms, top=10, calls=2, stats=None):
             step_fn()
         torch.cuda.synchronize()
     # device-side kernel events only: the host-side operator events carry
-    # their kernels' time too
+    # their kernels' time too, and the device-side spans of the stage ranges
+    # (utils/ranges.py, recorded while the profiler runs) cover kernels
+    averages = prof.key_averages()
+    ranges = {e.key for e in averages if e.is_user_annotation}
     rows = [(e.key, e.self_device_time_total / (1e3 * calls), e.count // calls)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            for e in averages
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation and e.key not in ranges]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if stats is not None:
@@ -1683,12 +1719,16 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # the same step with the total-energy fixer on (te1 before the remap, te2,
     # the global increment of each outer step and pt += dT / pkz after it),
     # held the same way
-    def check_step_f64(label, card, cpu, note="", qcld_scale=None):
+    def check_step_f64(label, card, cpu, note="", qcld_scale=None, field_scales=None,
+                       setup="C24 npz=8 f64", split=" (k_split=2, n_split=2)"):
         """Each of STEP_FIELDS of the card's state within STEP_F64_REL_TOL
         of its scale of the CPU's, on the compute domain, or raise. With
         ``qcld_scale``, the tracer block is held without qcld, and qcld on
-        its own to the larger of its maximum and ``qcld_scale``."""
-        pairs = {nm: (getattr(card, nm).cpu(), getattr(cpu, nm), scales.get(nm, 0.0))
+        its own to the larger of its maximum and ``qcld_scale``.
+        ``field_scales`` replaces this section's ``scales`` (for another
+        configuration than its C24 step)."""
+        sc = scales if field_scales is None else field_scales
+        pairs = {nm: (getattr(card, nm).cpu(), getattr(cpu, nm), sc.get(nm, 0.0))
                  for nm in STEP_FIELDS}
         if qcld_scale is not None:
             ic = constants.TRACER_NAMES.index("qcld")
@@ -1699,14 +1739,14 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
         worst = {}
         for nm, (x, y, extra) in pairs.items():
             x, y = ring(x, 3), ring(y, 3)
-            scale = max(float(y.abs().max()), extra)
+            scale = max(float(y.abs().max()), extra, 1e-300)
             worst[nm] = float((x - y).abs().max()) / scale
-        log(f"[check] C24 npz=8 f64 {label} (k_split=2, n_split=2), card kernels vs CPU plain "
+        log(f"[check] {setup} {label}{split}, card kernels vs CPU plain "
             f"path: {note}max diff over each field's scale: "
             + ", ".join(f"{nm} {r:.3e}" for nm, r in worst.items()))
         bad = {nm: r for nm, r in worst.items() if not r <= STEP_F64_REL_TOL}
         if bad:
-            raise AssertionError(f"C24 f64 {label} departs from the CPU reference: {bad}")
+            raise AssertionError(f"{setup} {label} departs from the CPU reference: {bad}")
 
     e_cases = [ddemo.build_case(device=d, consv_te=1.0, **small) for d in (dev, "cpu")]
     for c in e_cases:
@@ -2351,6 +2391,235 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
 
     log(f"[wall] section 6 (the rest of the physics) took {time.perf_counter() - t_phys:.1f} s")
 
+    # ------------------------------------------------------------------
+    # 7. the driver: examples/configs/baroclinic_c192.yaml through the
+    #    port's Driver (this slice's main path), the command line on
+    #    earthlike_c24.yaml, and one driver config on the card and the CPU
+    # ------------------------------------------------------------------
+    from pace_tpu_torch.driver.config import DriverConfig
+    from pace_tpu_torch.driver.driver import Driver
+    from pace_tpu_torch.models.fv3.state import DycoreState
+    from pace_tpu_torch.utils import native, netcdf3, yaml_subset
+
+    log(f"[driver] the native IO core of the NetCDF-3 codec (utils/_native/nc3core.cpp, g++) "
+        f"loaded: {native.available()}")
+    for res in (stout, h_out, hs_out, e_out, p_out, sa_out, el_out):
+        res.pop("case", None)
+    torch.cuda.empty_cache()
+    t_drv = time.perf_counter()
+    out_root = os.path.join(HERE, "chiprun_out", "driver")
+    shutil.rmtree(out_root, ignore_errors=True)
+    configs = os.path.join(HERE, "examples", "configs")
+
+    def read_yaml(name):
+        with open(os.path.join(configs, name)) as f:
+            return yaml_subset.safe_load(f)
+
+    def diagnostics_records(path):
+        return {nm: torch.from_numpy(np.asarray(v.data, dtype=np.float32))
+                for nm, v in netcdf3.read(os.path.join(path, "diagnostics.nc")).variables.items()}
+
+    # --- [driver baroclinic_c192]: the yaml as written, but STABLE_DAMPING
+    #     (its damping diverges, ROADMAP queue 3), 20 minutes (6 steps, one
+    #     diagnostics record), the HaloExchange stage split out, and the
+    #     outputs under chiprun_out/
+    c192_dir = os.path.join(out_root, "baroclinic_c192")
+    raw = read_yaml("baroclinic_c192.yaml")
+    raw.update(nx_tile=n, nz=npz, minutes=DRIVER_C192_MINUTES)
+    raw["dycore_config"].update(ddemo.STABLE_DAMPING)
+    dcfg = raw["diagnostics_config"]
+    dcfg.update(path=os.path.join(c192_dir, dcfg["path"]), output_format=DIAGNOSTICS_FORMAT)
+    pcfg = raw["performance_config"]
+    pcfg.update(experiment_name=os.path.join(c192_dir, pcfg["experiment_name"]),
+                collect_communication=True)
+    cfg = DriverConfig.from_dict(raw)
+    drv = Driver(cfg, device=dev)
+    # the tracer sub-cycles of every step the driver takes (the mainloop's
+    # and the stage profile's), for the launch table
+    subcycles = []
+    core_step = drv.dycore.step_dynamics
+
+    def recorded_step(state_):
+        new = core_step(state_)
+        subcycles.append(list(drv.dycore.tracer_subcycles))
+        return new
+
+    drv.dycore.step_dynamics = recorded_step
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    drv.step_all()
+    drv.cleanup()
+    drv_launches = {k: c[k] for k, c in counters.items()}
+    drv_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    report = drv.performance.report(cfg.dt_atmos)
+    dyc = cfg.dycore_config
+    n_drv = len(subcycles)
+    per = {"substep": n_drv * dyc.k_split * dyc.n_split, "outer": n_drv * dyc.k_split,
+           "subcycle": sum(map(sum, subcycles)), "step": n_drv}
+    want = {k: 0 for k in counters}
+    for kind, table in STEP_LAUNCHES.items():
+        for k, v in table.items():
+            want[k] += v * per[kind]
+    failures = []
+    if drv._step_count != cfg.n_timesteps or n_drv != cfg.n_timesteps + 1:
+        failures.append(f"{drv._step_count} steps of {cfg.n_timesteps}, {n_drv} step calls")
+    failures += [f"kernel {k} launched {drv_launches[k]} times, expected {c}"
+                 for k, c in want.items() if drv_launches[k] != c]
+    failures += [f"kernel {k} not on the driver's path" for k, c in drv_launches.items()
+                 if c <= 0]
+    # six direct steps from the analytic state on the same grid: the driver
+    # adds nothing to the numbers
+    ref_core = DynamicalCore(drv.grid_data, drv.halo, dyc, cfg.dt_atmos)
+    ref = DycoreState.from_analytic_init(drv.metric_terms, case="baroclinic", perturbation=True,
+                                         device=dev, dtype=f32)
+    for _ in range(cfg.n_timesteps):
+        ref = ref_core.step_dynamics(ref)
+    fields = [f.name for f in dataclasses.fields(ref)]
+    differ = [nm for nm in fields
+              if (getattr(ref, nm) is None) != (getattr(drv.state, nm) is None)
+              or (getattr(ref, nm) is not None and not same_bits(getattr(ref, nm),
+                                                                  getattr(drv.state, nm)))]
+    del ref, ref_core
+    recs = diagnostics_records(cfg.diagnostics_config.path)
+    diag_names = ("ps", "ua", "va", "pt", "lat", "lon", "time")
+    bad_diag = [nm for nm in diag_names
+                if nm not in recs or not bool(torch.isfinite(recs[nm]).all())]
+    perf_json = f"{cfg.performance_config.experiment_name}_perf.json"
+    stages = drv.performance.stage_device_seconds
+    log(f"[driver baroclinic_c192] C{n} npz={npz} f32 k_split={dyc.k_split} "
+        f"n_split={dyc.n_split}, {drv._step_count} steps of {cfg.dt_atmos:.0f} s: mainloop "
+        f"{1e3 * report['mainloop_mean_seconds']:.3f} ms/step over steps 2-{drv._step_count} "
+        f"(ms: {', '.join(f'{1e3 * t:.3f}' for t in drv.performance.step_seconds)}), SYPD "
+        f"{report['SYPD']:.5f}, against [step]'s {stout['ms_per_step']:.3f} ms/step in this "
+        f"call; peak memory {drv_peak:.2f} GB")
+    log(f"[driver baroclinic_c192] launches in {n_drv} step calls (the mainloop's "
+        f"{drv._step_count} and the stage profile's one): {drv_launches}")
+    log(f"[driver baroclinic_c192] state after {drv._step_count} steps against as many direct "
+        f"step_dynamics calls from DycoreState.from_analytic_init: {len(fields) - len(differ)} "
+        f"of {len(fields)} fields bit-identical{': differ ' + ', '.join(differ) if differ else ''}"
+        f"; diagnostics {sorted(recs)} ({int(recs['ps'].shape[0]) if 'ps' in recs else 0} "
+        f"record), finite: {not bad_diag}; {os.path.basename(perf_json)} written: "
+        f"{os.path.exists(perf_json)}")
+    if stages:
+        named = {k: v for k, v in stages.items() if k != "other"}
+        log("[driver baroclinic_c192] stage device times of one step (collect_communication): "
+            + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in stages.items())
+            + f"; the stages' sum {1e3 * sum(named.values()):.3f} ms of the profiled step's "
+            f"{1e3 * sum(stages.values()):.3f} ms of device time")
+    else:
+        log("[driver baroclinic_c192] stage device times: the profiler recorded no device "
+            "time: not measured")
+    if differ:
+        failures.append(f"fields differ from the direct steps: {differ}")
+    if bad_diag or int(recs["ps"].shape[0]) != 1:
+        failures.append(f"diagnostics missing or not finite: {bad_diag}")
+    if not os.path.exists(perf_json):
+        failures.append(f"{perf_json} not written")
+    if failures:
+        raise AssertionError("[driver baroclinic_c192] checks failed: " + "; ".join(failures))
+    # the C192 record (about 280 MB) is not kept: the outputs under
+    # chiprun_out/ stay small enough to copy back from the card's machine
+    shutil.rmtree(cfg.diagnostics_config.path)
+    del drv, recs
+    torch.cuda.empty_cache()
+
+    # --- [driver cli earthlike_c24]: the user's command on the yaml as
+    #     written, in a fresh directory (a copy that differs only in the
+    #     diagnostics' output_format where h5py is missing)
+    cli_dir = os.path.join(out_root, "cli_earthlike_c24")
+    os.makedirs(cli_dir)
+    with open(os.path.join(configs, "earthlike_c24.yaml")) as f:
+        text = f.read()
+    if DIAGNOSTICS_FORMAT != "hdf5":
+        text = text.replace("diagnostics_config:\n",
+                            f"diagnostics_config:\n  output_format: {DIAGNOSTICS_FORMAT}\n", 1)
+        a, b = read_yaml("earthlike_c24.yaml"), yaml_subset.load(text)
+        b["diagnostics_config"].pop("output_format")
+        if a != b:
+            raise AssertionError("the copy of earthlike_c24.yaml differs in more than "
+                                 "output_format")
+    yaml_copy = os.path.join(cli_dir, "earthlike_c24.yaml")
+    with open(yaml_copy, "w") as f:
+        f.write(text)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pace_tpu_torch.driver.run", yaml_copy, "--device", dev.type],
+        cwd=cli_dir, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(cli_dir, "run.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    tail = [ln for ln in proc.stdout.splitlines() if "mainloop" in ln or "running" in ln]
+    log(f"[driver cli earthlike_c24] python -m pace_tpu_torch.driver.run earthlike_c24.yaml: "
+        f"rc {proc.returncode} in {cli_s:.1f} s; " + " | ".join(tail))
+    failures = []
+    if proc.returncode != 0:
+        failures.append(f"rc {proc.returncode}: {proc.stderr[-3000:]}")
+    else:
+        recs = diagnostics_records(os.path.join(cli_dir, "output_earthlike"))
+        for nm in ("ps", "ua", "precipitation", "tskin"):
+            if nm not in recs or recs[nm].shape[0] != 2 or not bool(torch.isfinite(recs[nm]).all()):
+                failures.append(f"{nm}: not 2 finite records")
+        if "tskin" in recs:
+            tsk = recs["tskin"]
+            log(f"[driver cli earthlike_c24] diagnostics {sorted(recs)}: ps records "
+                f"{tuple(recs['ps'].shape)}, tskin in [{float(tsk.min()):.3f}, "
+                f"{float(tsk.max()):.3f}] K (allowed {TSKIN_RANGE}), precipitation up to "
+                f"{float(recs['precipitation'].max()):.4e} kg/m^2/s")
+            if not TSKIN_RANGE[0] <= float(tsk.min()) <= float(tsk.max()) <= TSKIN_RANGE[1]:
+                failures.append(f"tskin range [{float(tsk.min())}, {float(tsk.max())}]")
+        if not os.path.exists(os.path.join(cli_dir, "earthlike_c24_perf.json")):
+            failures.append("earthlike_c24_perf.json not written")
+    if failures:
+        raise AssertionError("[driver cli earthlike_c24] checks failed: " + "; ".join(failures))
+
+    # --- [driver f64]: earthlike_c24.yaml cut to C12 npz=8 and 2 steps in
+    #     float64, on the card and on the CPU
+    raw = read_yaml("earthlike_c24.yaml")
+    raw.update(nx_tile=12, nz=8, minutes=15, precision=64)
+    raw["diagnostics_config"]["output_format"] = DIAGNOSTICS_FORMAT
+    f64 = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        r = json.loads(json.dumps(raw))
+        r["diagnostics_config"]["path"] = os.path.join(out_root, f"f64_{tag}", "output")
+        r["performance_config"]["experiment_name"] = os.path.join(out_root, f"f64_{tag}", "exp")
+        drv = Driver(DriverConfig.from_dict(r), device=d)
+        start = drv.state
+        drv.step_all()
+        drv.cleanup()
+        f64[tag] = dict(driver=drv, start=start)
+    card, cpu = f64["card"]["driver"], f64["cpu"]["driver"]
+    f64_scales = step_f64_scales(SimpleNamespace(state=f64["cpu"]["start"], grid=cpu.grid_data,
+                                                 core=cpu.dycore), constants)
+    check_step_f64("driver, earthlike_c24.yaml's config, 2 steps", card.state, cpu.state,
+                   field_scales=f64_scales, setup="C12 npz=8 f64", split="")
+    check_physics_f64("driver, earthlike_c24.yaml's config: its surface state",
+                      surface_fields(card.physics.surface_state),
+                      surface_fields(cpu.physics.surface_state), setup="C12 npz=8 f64")
+
+    def diagnostic_fields(drv_):
+        extras = drv_._physics_extras()
+        return {nm: getattr(drv_.state, nm, None) if getattr(drv_.state, nm, None) is not None
+                else extras[nm] for nm in drv_.config.diagnostics_config.names}
+
+    check_physics_f64("driver, earthlike_c24.yaml's config: the diagnostics' fields",
+                      diagnostic_fields(card), diagnostic_fields(cpu), setup="C12 npz=8 f64")
+    recs = [diagnostics_records(f64[t]["driver"].config.diagnostics_config.path)
+            for t in ("card", "cpu")]
+    off = {}
+    for nm, y in recs[1].items():
+        x = recs[0][nm]
+        ulp = torch.from_numpy(np.spacing(np.maximum(np.abs(x.numpy()), np.abs(y.numpy()))))
+        off[nm] = int(((x.double() - y.double()).abs() > ulp).sum())
+    log(f"[check] C12 npz=8 f64 driver, earthlike_c24.yaml's config: stored float32 records, "
+        f"points more than one float32 ulp apart, card vs CPU: {off}; restarts not checked on "
+        f"the card (h5py is not installed there)")
+    if any(off.values()):
+        raise AssertionError(f"[driver f64] stored diagnostics differ: {off}")
+    del f64, card, cpu, drv, recs
+    log(f"[wall] section 7 (the driver) took {time.perf_counter() - t_drv:.1f} s")
+
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
         "fvtp2d": ("pace_tpu_torch/csrc/fvtp2d.cu", "pace_tpu/ops/fvtp2d_pallas.py:135"),
@@ -2379,7 +2648,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                    "dycore_step_physics": p_launches[name],
                    "dycore_step_sat_adj": sa_launches[name],
                    "dycore_step_earthlike": el_launches[name],
-                   "dycore_step_held_suarez": hs_launches[name]}
+                   "dycore_step_held_suarez": hs_launches[name],
+                   "driver_baroclinic_c192": drv_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

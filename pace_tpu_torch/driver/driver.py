@@ -1,0 +1,333 @@
+"""Driver: builds the grid, state, dycore and physics, runs the timestep loop.
+
+Port of ``pace_tpu.driver.driver`` (reference role: ``Driver``: ``__init__``
+builds the grid, state, dycore, physics and diagnostics; ``step_all`` runs
+the mainloop with per-step diagnostics, safety checks, performance
+collection and intermediate restarts; ``cleanup`` writes the final outputs).
+Each step runs eagerly on the driver's device, ``cuda`` unless the caller
+asks for ``cpu``; the dtype comes from ``precision`` (64: float64, else
+float32), with no process-wide switch.
+
+Not ported, and refused with ``NotImplementedError`` rather than skipped:
+the device mesh (``mesh_config.enabled``) and the halo backends ``null``,
+``write`` and ``read`` (ROADMAP queue 1 item 7), ``pair_debug`` (the stage
+checkpointer, item 6), ``debug_checks`` (the sanitizer, item 8) and
+``grid_indexing`` (``dsl.py``, item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..dtypes import resolve_device
+from ..grid.grid_data import GridData
+from ..models.fv3.dycore import DynamicalCore
+from ..utils.logging import get_logger
+from .config import DriverConfig
+from .performance import Timer
+from .restart import (
+    has_surface_restart, load_surface_restart, restart_time, save_restart,
+    save_surface_restart,
+)
+from .safety_checks import SafetyChecker
+
+logger = get_logger()
+
+#: the physics stages the stage profile reads (pace_tpu's list)
+PHYSICS_STAGES = ("Radiation", "Surface", "PBL", "DeepConvection", "ShallowConvection",
+                  "Microphysics")
+
+
+class Driver:
+    def __init__(self, config: DriverConfig, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        if config.mesh_config.enabled:
+            raise NotImplementedError(
+                "mesh_config.enabled: the multi-device mesh is not ported yet "
+                "(ROADMAP queue 1 item 7)")
+        if config.comm_config.type in ("null", "write", "read"):
+            raise NotImplementedError(
+                f"comm_config.type {config.comm_config.type!r}: the halo backends null, write "
+                "and read are not ported yet (ROADMAP queue 1 item 7)")
+        if config.comm_config.type != "exchange":
+            raise ValueError(f"unknown comm type {config.comm_config.type!r}")
+        if config.pair_debug:
+            raise NotImplementedError(
+                "pair_debug: the stage checkpointer is not ported yet (ROADMAP queue 1 item 6)")
+        if config.debug_checks:
+            raise NotImplementedError(
+                "debug_checks: the per-stage sanitizer is not ported yet (ROADMAP queue 1 "
+                "item 8)")
+        dtype = torch.float64 if config.precision == 64 else torch.float32
+        self.dtype = dtype
+
+        logger.info("generating grid (C%d, nz=%d)", config.nx_tile, config.nz)
+        self.metric_terms = config.grid_config.get_metric_terms(
+            config.nx_tile, config.nz, config.layout
+        )
+        self.grid_data = GridData.from_metric_terms(self.metric_terms, device=self.device,
+                                                    dtype=dtype)
+        self.halo = self.metric_terms.halo
+
+        logger.info("initializing state (%s)", config.initialization.type)
+        self.state = config.initialization.get_dycore_state(
+            self.metric_terms, self.device, dtype
+        )
+        self.dycore = DynamicalCore(
+            self.grid_data, self.halo, config.dycore_config, config.dt_atmos
+        )
+
+        self.physics = None
+        run_physics = (
+            config.physics_config.schemes
+            and not config.dycore_only
+            and not config.disable_step_physics
+        )
+        # the dry convective adjustment runs even with dycore_only
+        if run_physics or config.dycore_config.fv_sg_adj > 0:
+            self.physics = self._build_physics(run_physics)
+            self._maybe_load_surface()
+            # the surface state exists before the first physics call, so
+            # that step-0 diagnostics can read precipitation, tskin, ...
+            if (self.physics._surface is not None
+                    and self.physics.surface_state is None):
+                self.physics.surface_state = self.physics._surface.init(
+                    self.state.ps.shape, self.state.ps.dtype, device=self.device
+                )
+
+        self.diagnostics = config.diagnostics_config.diagnostics_factory(
+            self.metric_terms, self.metric_terms.spec.n_halo
+        )
+        self.diagnostics.store_grid(self.metric_terms)
+
+        self.performance = config.performance_config.build()
+        self.timer = Timer()
+
+        self.safety_checker = SafetyChecker()
+        for chk in config.safety_checks:
+            self.safety_checker.register_variable(
+                chk.variable,
+                chk.minimum_value,
+                chk.maximum_value,
+                chk.compute_domain_only,
+            )
+
+        # a restart resumes the model clock (the diurnal forcing and the
+        # output times continue)
+        self.time_seconds = 0.0
+        init = config.initialization
+        if init.type in ("restart", "fortran_restart"):
+            icfg = init.config or {}
+            self.time_seconds = float(icfg.get("start_time_seconds", 0.0))
+            if not self.time_seconds:
+                try:
+                    self.time_seconds = restart_time(icfg.get("path", "RESTART"))
+                except (OSError, KeyError):
+                    pass
+        self._step_count = 0
+
+    def _build_physics(self, run_physics: bool):
+        from ..models.shield.band_radiation import BandRadiationConfig
+        from ..models.shield.held_suarez import HeldSuarezConfig
+        from ..models.shield.microphysics import MicrophysicsConfig
+        from ..models.shield.pbl import PBLConfig
+        from ..models.shield.physics import Physics
+        from ..models.shield.radiation import GrayRadiationConfig
+        from ..models.shield.sas import DeepConvectionConfig, ShallowConvectionConfig
+        from ..models.shield.surface import SurfaceConfig
+        from ..utils.registry import from_dict
+
+        config = self.config
+        pc = config.physics_config
+        # the saturation-adjustment family lives in dycore_config (shared
+        # with the dycore's saturation adjustment); physics_config's
+        # microphysics keys override it
+        shared = {
+            k: getattr(config.dycore_config, k)
+            for k in (
+                "tau_l2v", "tau_v2l", "tau_i2s", "tau_g2v", "ql_gen",
+                "ql_mlt", "qs_mlt", "qi_lim", "dw_ocean", "dw_land",
+                "icloud_f", "do_qa",
+            )
+        }
+        return Physics(
+            self.grid_data,
+            pc.schemes if run_physics else (),
+            config.dt_atmos,
+            fv_sg_adj=config.dycore_config.fv_sg_adj,
+            config=from_dict(MicrophysicsConfig, {**shared, **(pc.microphysics or {})}),
+            pbl_config=from_dict(PBLConfig, pc.pbl or {}),
+            radiation_config=from_dict(GrayRadiationConfig, pc.radiation or {}),
+            sas_config=from_dict(ShallowConvectionConfig, pc.shallow_convection or {}),
+            deep_config=from_dict(DeepConvectionConfig, pc.deep_convection or {}),
+            surface_config=from_dict(SurfaceConfig, pc.surface or {}),
+            held_suarez_config=from_dict(HeldSuarezConfig, pc.held_suarez or {}),
+            band_radiation_config=from_dict(BandRadiationConfig, pc.band_radiation or {}),
+            halo=self.halo,
+        )
+
+    def grid_indexing(self, shard: int = 0):
+        raise NotImplementedError(
+            "grid_indexing: the stencil facade (dsl.py GridIndexing) is not ported yet "
+            "(ROADMAP queue 1 item 8)")
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def step_all(self):
+        n = self.config.n_timesteps
+        perf = self.config.performance_config
+        logger.info("running %d steps of dt=%s s", n, self.config.dt_atmos)
+        profiler = perf.build_profiler()
+        if profiler is not None:
+            profiler.enable()
+        trace = self._start_trace() if perf.profile_dir else None
+        if self.config.diagnostics_config.output_initial_state:
+            self.diagnostics.store(self.time_seconds, self.state, self._physics_extras())
+        for _ in range(n):
+            t0 = time.perf_counter()
+            with self.timer.clock("mainloop"):
+                self.state = self.dycore.step_dynamics(self.state)
+                if self.physics is not None:
+                    self.state = self.physics(self.state, self.time_seconds)
+            # wait for the device so that each step's time is honest
+            self._sync()
+            self.performance.record_step(time.perf_counter() - t0)
+            self.time_seconds += self.config.dt_atmos
+            self._step_count += 1
+            # the stage profile runs its own profiler: with a whole-run
+            # trace open it waits until that trace is written
+            if self._step_count == 1 and trace is None:
+                self._collect_stage_times()
+            self._end_of_step_actions()
+        if trace is not None:
+            trace.stop()
+            logger.info("torch.profiler trace written to %s", perf.profile_dir)
+            self._collect_stage_times()
+        if profiler is not None:
+            profiler.disable()
+            prof_path = f"{perf.experiment_name}.prof"
+            profiler.dump_stats(prof_path)
+            logger.info("cProfile written to %s", prof_path)
+
+    def _start_trace(self):
+        """A running torch.profiler over the mainloop, written for
+        TensorBoard into ``profile_dir`` when it stops."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        trace = profile(activities=activities,
+                        on_trace_ready=tensorboard_trace_handler(
+                            self.config.performance_config.profile_dir))
+        trace.start()
+        return trace
+
+    def _collect_stage_times(self):
+        """Device seconds of one step per stage (``collect_stage_times``;
+        see stage_profile.py), on a copy of the state; the physics stages
+        from one physics call."""
+        perf = self.config.performance_config
+        if not perf.collect_stage_times:
+            return
+        from .stage_profile import STAGES, profile_stage_times
+
+        state = dataclasses.replace(self.state, **{
+            f.name: getattr(self.state, f.name).clone()
+            for f in dataclasses.fields(self.state)
+            if getattr(self.state, f.name) is not None})
+        # collect_communication splits the halo exchanges' device time out
+        # of their enclosing stage: HaloExchange is the innermost range
+        stages = ("HaloExchange",) + STAGES if perf.collect_communication else STAGES
+        stage_times = profile_stage_times(self.dycore.step_dynamics, state, stages=stages)
+        del state
+        if self.physics is not None:
+            t = np.float32(self.time_seconds)
+            stage_times.update(profile_stage_times(
+                self.physics._call_impl, self.state, self.physics.surface_state, t,
+                stages=PHYSICS_STAGES,
+            ))
+        self.performance.stage_device_seconds = stage_times
+
+    def _end_of_step_actions(self):
+        cfg = self.config
+        if self._step_count % cfg.diagnostics_config.output_frequency == 0:
+            self.diagnostics.store(self.time_seconds, self.state, self._physics_extras())
+            # an ongoing summary at every output step: a crash later on
+            # still leaves the timings on disk
+            if cfg.performance_config.collect_performance:
+                self.performance.write_json(
+                    f"{cfg.performance_config.experiment_name}_perf.json",
+                    cfg.dt_atmos,
+                )
+        self.safety_checker.check_state(self.state, n_halo=self.metric_terms.spec.n_halo)
+        if (
+            cfg.restart_config.save_intermediate_restart
+            and self._step_count in cfg.restart_config.intermediate_restart
+        ):
+            path = os.path.join(cfg.restart_config.path, f"step_{self._step_count}")
+            save_restart(path, self.state, self.time_seconds)
+            self._save_surface(path)
+            cfg.write_for_restart(path, self.time_seconds)
+
+    def _physics_extras(self):
+        """Physics and surface fields for the diagnostics' ``names``
+        (precipitation rate, skin temperature, snow, ice, soil state) that
+        do not live on the DycoreState; for the mixed surface the inactive
+        scheme's fields are NaN."""
+        phys = self.physics
+        if phys is None or phys.surface_state is None:
+            return None
+        sfc = phys.surface_state
+        extras = {"precipitation": sfc.precip}
+        if phys._surface is not None:
+            extras.update(phys._surface.diagnostics(sfc))
+        return extras
+
+    def _save_surface(self, path):
+        if self.physics is not None and self.physics.surface_state is not None:
+            save_surface_restart(path, self.physics.surface_state)
+
+    def _maybe_load_surface(self):
+        """Restore the interactive surface's state on a restart (a coupled
+        run resumes bit for bit)."""
+        init = self.config.initialization
+        if init.type not in ("restart", "fortran_restart"):
+            return
+        if self.physics is None or self.physics._surface is None:
+            return
+        path = (init.config or {}).get("path", "RESTART")
+        if not has_surface_restart(path):
+            return
+        template = self.physics._surface.init(self.state.ps.shape, self.state.ps.dtype,
+                                              device=self.device)
+        self.physics.surface_state = load_surface_restart(path, template)
+
+    def cleanup(self):
+        cfg = self.config
+        if cfg.restart_config.save_restart:
+            os.makedirs(cfg.restart_config.path, exist_ok=True)
+            save_restart(cfg.restart_config.path, self.state, self.time_seconds)
+            self._save_surface(cfg.restart_config.path)
+            cfg.write_for_restart(cfg.restart_config.path, self.time_seconds)
+        self.diagnostics.cleanup()
+        if cfg.performance_config.collect_performance:
+            report = self.performance.report(cfg.dt_atmos)
+            logger.info(
+                "mainloop mean %.3f s/step, SYPD=%s",
+                report["mainloop_mean_seconds"],
+                report["SYPD"],
+            )
+            self.performance.write_json(
+                f"{cfg.performance_config.experiment_name}_perf.json",
+                cfg.dt_atmos,
+            )

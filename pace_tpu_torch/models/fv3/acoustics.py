@@ -45,6 +45,7 @@ from ...ops.nonhydro import (
     updatedz_d,
 )
 from ...ops.pgrad import one_grad_p, p_grad_c
+from ...utils.ranges import stage_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +141,8 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
     w_x, w_y = (pairs[2][0], CornerPatch(pairs[2][1])) if w is not None else (None, None)
 
     # --- C-grid half step + its pressure gradient
-    cg = c_sw(u_y, v_x, delp_x, pt_x, grid, halo, dt2)
+    with stage_range("C_SW"):
+        cg = c_sw(u_y, v_x, delp_x, pt_x, grid, halo, dt2)
     nh = {}
     if hydro:
         _pe, _peln, pkc, pkz_c, gz_c = hydrostatic_interfaces_best(
@@ -158,14 +160,16 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
         if phis_folds is None:
             phis_folds = halo.update_scalar_folds(phis)
         phis_cx, phis_cy = phis_folds
-        zh_cx = heights_from_delz(delz, phis_cx)
-        zh_cy = heights_from_delz(delz_y, phis_cy)
-        zh_c, ws_c = updatedz_c(zh_cx, zh_cy, cg.xfx, cg.yfx, grid, dt2)
+        with stage_range("UpdateDZ"):
+            zh_cx = heights_from_delz(delz, phis_cx)
+            zh_cy = heights_from_delz(delz_y, phis_cy)
+            zh_c, ws_c = updatedz_c(zh_cx, zh_cy, cg.xfx, cg.yfx, grid, dt2)
         delz_c = zh_c[..., 1:, :, :] - zh_c[..., :-1, :, :]
-        pe_full_c, delz_c_new = riem_solver_c(
-            w_x, delz_c, cg.ptc, cg.delpc, pkz_c, ws_c, dt2, ptop,
-            a_imp=config.a_imp, p_fac=config.p_fac,
-        )
+        with stage_range("RiemannC"):
+            pe_full_c, delz_c_new = riem_solver_c(
+                w_x, delz_c, cg.ptc, cg.delpc, pkz_c, ws_c, dt2, ptop,
+                a_imp=config.a_imp, p_fac=config.p_fac,
+            )
         # p_grad_c heights from the SOLVED provisional thicknesses, and the
         # contour PGF with the full pressure in Pa
         gz_c = heights_from_delz(delz_c_new, phis) * constants.GRAV
@@ -246,11 +250,12 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
                          "C-grid half")
     cg = half.cg
     # the D-grid step takes the exchanged w for both its w arguments
-    ds = d_sw(
-        half.u_y, half.v_x, half.w_x, half.delp_x, half.delp_y, half.pt_x, half.pt_y,
-        half.w_x, half.w_y, half.uc_x, half.vc_x, half.uc_y, half.vc_y, cg.divg_d,
-        grid, halo, dt, config.d_sw,
-    )
+    with stage_range("D_SW"):
+        ds = d_sw(
+            half.u_y, half.v_x, half.w_x, half.delp_x, half.delp_y, half.pt_x, half.pt_y,
+            half.w_x, half.w_y, half.uc_x, half.vc_x, half.uc_y, half.vc_y, cg.divg_d,
+            grid, halo, dt, config.d_sw,
+        )
     pt = ds.pt
     if ds.heat is not None and config.d_sw.d_con > 0.0:
         # dissipation heating: dT = d_con*heat/cv_air capped at
@@ -270,7 +275,8 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
     # terrain-following surface w, then the implicit vertical solve; the
     # heights were built by the C-grid half from the same delz and phis folds
     phis_x, _phis_y = half.phis_folds
-    zh_adv = updatedz_d(half.zh_x, half.zh_y, ds.crx, ds.cry, ds.xfx, ds.yfx, grid, dt)
+    with stage_range("UpdateDZ"):
+        zh_adv = updatedz_d(half.zh_x, half.zh_y, ds.crx, ds.cry, ds.xfx, ds.yfx, grid, dt)
     zs = half.zh_x[..., -1:, :, :]
     ws = (zh_adv[..., -1:, :, :] - zs)[..., 0, :, :] / torch.tensor(
         dt, dtype=zs.dtype, device=zs.device)
@@ -280,9 +286,11 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
     _pe, _peln, pk_h, pkz_h, _gz = hydrostatic_interfaces_best(
         delp_h, pt_h, phis, ptop, need=("pk", "pkz")
     )
-    w, delz, pp = riem_solver3(
-        ds.w, delz, pt_h, delp_h, pkz_h, ws, dt, ptop, a_imp=config.a_imp, p_fac=config.p_fac
-    )
+    with stage_range("Riemann3"):
+        w, delz, pp = riem_solver3(
+            ds.w, delz, pt_h, delp_h, pkz_h, ws, dt, ptop, a_imp=config.a_imp,
+            p_fac=config.p_fac,
+        )
     # the solver's halo columns used garbage ws (fluxes are only valid on
     # the domain): refresh the ghosts with owner values
     w, delz = halo.update_scalars([w, delz], fold="x")
@@ -385,28 +393,30 @@ def _one_substep(u, v, w, delp, pt, delz, phis, grid, halo, config, dt, dt2, pto
         # forward-backward: the pressure gradient of the new delp, pt
         _pe, _peln, pk, _pkz, gz = hydrostatic_interfaces_best(
             dh.delp, dh.pt, phis, ptop, need=("pk", "gz"))
-        u2, v2 = one_grad_p(u, v, pk, gz, grid, dt)
-        del pk, gz
-        if dugf_prev is not None:
-            du, dv = u2 - u, v2 - v
-            u = u + (1.0 - beta) * du + beta * dugf_prev[0]
-            v = v + (1.0 - beta) * dv + beta * dugf_prev[1]
-            dugf_new = (du, dv)
-        else:
-            u, v = u2, v2
-    else:
-        u2, v2 = nh_p_grad_best(u, v, dh.pk, dh.gz, dh.pp, dh.delp, grid, dt)
-        if beta != 0.0:
-            # the same blend, seeded by a full-PGF first substep (see acoustic_loop)
-            du, dv = u2 - u, v2 - v
+        with stage_range("PGradD"):
+            u2, v2 = one_grad_p(u, v, pk, gz, grid, dt)
+            del pk, gz
             if dugf_prev is not None:
+                du, dv = u2 - u, v2 - v
                 u = u + (1.0 - beta) * du + beta * dugf_prev[0]
                 v = v + (1.0 - beta) * dv + beta * dugf_prev[1]
+                dugf_new = (du, dv)
             else:
                 u, v = u2, v2
-            dugf_new = (du, dv)
-        else:
-            u, v = u2, v2
+    else:
+        with stage_range("PGradD"):
+            u2, v2 = nh_p_grad_best(u, v, dh.pk, dh.gz, dh.pp, dh.delp, grid, dt)
+            if beta != 0.0:
+                # the same blend, seeded by a full-PGF first substep (see acoustic_loop)
+                du, dv = u2 - u, v2 - v
+                if dugf_prev is not None:
+                    u = u + (1.0 - beta) * du + beta * dugf_prev[0]
+                    v = v + (1.0 - beta) * dv + beta * dugf_prev[1]
+                else:
+                    u, v = u2, v2
+                dugf_new = (du, dv)
+            else:
+                u, v = u2, v2
     del u2, v2
     if config.rf_fast and config.tau > 0.0:
         # Rayleigh damping inside the substep, over the static reference

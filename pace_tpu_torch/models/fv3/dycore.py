@@ -33,6 +33,7 @@ from ...ops.moist_cv import compute_q_con, moist_cv
 from ...ops.remapping import pe_at_u_points, pe_at_v_points, remap_field_best, remap_tracers
 from ...ops.stencil_utils import scalar_like
 from ...ops.tracer_advection import advect_tracers, subcycle_count
+from ...utils.ranges import stage_range
 from ..shield.microphysics import MicrophysicsConfig
 from .acoustics import AcousticConfig, acoustic_loop
 from .state import DycoreState
@@ -270,55 +271,61 @@ class DynamicalCore:
         grid, halo = self.grid, self.halo
         dt_k = self.timestep / cfg.k_split
         delp0 = delp
-        res = acoustic_loop(u, v, w, delp, pt, phis, grid, halo, cfg.acoustic(), dt_k,
-                            delz=delz)
+        # the stage ranges carry the reference's timer names, which the
+        # driver's stage profile reads
+        with stage_range("DynCore"):
+            res = acoustic_loop(u, v, w, delp, pt, phis, grid, halo, cfg.acoustic(), dt_k,
+                                delz=delz)
         u, v, w, delz = res.u, res.v, res.w, res.delz
 
         # tracer transport through the accumulated mass fluxes; the sub-cycle
         # count (one host sync) is taken here so that the step can report it
-        n_sub = (subcycle_count(res.cxd, res.cyd, grid.n_halo, cfg.n_split_tracer)
-                 if cfg.tracer_dynamic_subcycle else cfg.n_split_tracer)
-        self.tracer_subcycles.append(n_sub)
-        q, _dp = advect_tracers(q, delp0, res.cxd, res.cyd, res.xfxd, res.yfxd, res.mfxd,
-                                res.mfyd, halo, grid, hord=cfg.hord_tr, n_split=n_sub,
-                                dynamic=False)
+        with stage_range("TracerAdvection"):
+            n_sub = (subcycle_count(res.cxd, res.cyd, grid.n_halo, cfg.n_split_tracer)
+                     if cfg.tracer_dynamic_subcycle else cfg.n_split_tracer)
+            self.tracer_subcycles.append(n_sub)
+            q, _dp = advect_tracers(q, delp0, res.cxd, res.cyd, res.xfxd, res.yfxd, res.mfxd,
+                                    res.mfyd, halo, grid, hord=cfg.hord_tr, n_split=n_sub,
+                                    dynamic=False)
         del _dp
         delp, pt = res.delp, res.pt
 
-        # vertical remap back to the hybrid reference coordinate; the
-        # Eulerian mid-level pressures at the interval start (from the
-        # pre-acoustic delp) give the omga = Dp/Dt diagnostic
-        if cfg.consv_te > 0.0:
-            te1 = total_energy_columns(u, v, w, delp, pt, _lagrangian_pkz(delp, grid.ptop), phis)
-        pe0 = _interfaces(delp0, grid.ptop)
-        pe_old_mid = 0.5 * (pe0[..., 1:, :, :] + pe0[..., :-1, :, :])
-        del pe0, delp0
-        u, v, w, delz, delp, pt, q, pe, peln, pkz, omga = self._remap(
-            u, v, w, delz, delp, pt, q, pe_old_mid=pe_old_mid, mdt=dt_k)
-        if cfg.consv_te > 0.0:
-            # the global total-energy fixer: the remap's energy change over
-            # the whole cube, returned as one uniform heating, weighted by
-            # the moist heat capacity
-            te2 = total_energy_columns(u, v, w, delp, pt, pkz, phis)
-            cvm, _q_con = moist_cv(q, cfg.nwat)
-            dT = global_energy_fix_increment(te1, te2, cvm, delp, grid.area, grid.n_halo,
-                                             cfg.consv_te)
-            del te1, te2, cvm, _q_con
-            pt = pt + dT / pkz
-            self.energy_fix_dT.append(dT)
-        if cfg.do_sat_adj:
-            # the fast phase adjustment of all six water species, shared with
-            # the GFDL microphysics, at the remap's layer pressures
-            p_mid = delp / (peln[..., 1:, :, :] - peln[..., :-1, :, :])
-            pt, qv, ql, qi, qr, qs, qg, qa = sat_adjust(
-                pt, *(q[:, TRACER_NAMES.index(n)] for n in _WATER), p_mid=p_mid, pkz=pkz,
-                dt=dt_k, config=self._sat_adjust_config)
-            new = dict(zip(_WATER, (qv, ql, qi, qr, qs, qg)))
-            if cfg.do_qa and qa is not None:
-                # the qcld tracer takes the diagnostic cloud fraction
-                new["qcld"] = qa
-            q = torch.stack([new.get(n, q[:, i]) for i, n in enumerate(TRACER_NAMES)], dim=1)
-            del p_mid, qv, ql, qi, qr, qs, qg, qa, new
+        with stage_range("Remapping"):
+            # vertical remap back to the hybrid reference coordinate; the
+            # Eulerian mid-level pressures at the interval start (from the
+            # pre-acoustic delp) give the omga = Dp/Dt diagnostic
+            if cfg.consv_te > 0.0:
+                te1 = total_energy_columns(u, v, w, delp, pt,
+                                           _lagrangian_pkz(delp, grid.ptop), phis)
+            pe0 = _interfaces(delp0, grid.ptop)
+            pe_old_mid = 0.5 * (pe0[..., 1:, :, :] + pe0[..., :-1, :, :])
+            del pe0, delp0
+            u, v, w, delz, delp, pt, q, pe, peln, pkz, omga = self._remap(
+                u, v, w, delz, delp, pt, q, pe_old_mid=pe_old_mid, mdt=dt_k)
+            if cfg.consv_te > 0.0:
+                # the global total-energy fixer: the remap's energy change over
+                # the whole cube, returned as one uniform heating, weighted by
+                # the moist heat capacity
+                te2 = total_energy_columns(u, v, w, delp, pt, pkz, phis)
+                cvm, _q_con = moist_cv(q, cfg.nwat)
+                dT = global_energy_fix_increment(te1, te2, cvm, delp, grid.area, grid.n_halo,
+                                                 cfg.consv_te)
+                del te1, te2, cvm, _q_con
+                pt = pt + dT / pkz
+                self.energy_fix_dT.append(dT)
+            if cfg.do_sat_adj:
+                # the fast phase adjustment of all six water species, shared with
+                # the GFDL microphysics, at the remap's layer pressures
+                p_mid = delp / (peln[..., 1:, :, :] - peln[..., :-1, :, :])
+                pt, qv, ql, qi, qr, qs, qg, qa = sat_adjust(
+                    pt, *(q[:, TRACER_NAMES.index(n)] for n in _WATER), p_mid=p_mid, pkz=pkz,
+                    dt=dt_k, config=self._sat_adjust_config)
+                new = dict(zip(_WATER, (qv, ql, qi, qr, qs, qg)))
+                if cfg.do_qa and qa is not None:
+                    # the qcld tracer takes the diagnostic cloud fraction
+                    new["qcld"] = qa
+                q = torch.stack([new.get(n, q[:, i]) for i, n in enumerate(TRACER_NAMES)], dim=1)
+                del p_mid, qv, ql, qi, qr, qs, qg, qa, new
 
         # the fv_dynamics tail: sponge, slow Rayleigh damping, fill
         if cfg.n_sponge > 0 and cfg.d_ext > 0.0:

@@ -110,9 +110,26 @@ class DycoreState:
         }
 
     @classmethod
-    def from_baroclinic_init(cls, mt, perturbation: bool = True, device="cuda",
-                             dtype=torch.float32) -> "DycoreState":
-        """Build from the JW06 analytic state (see init_baroclinic)."""
+    def from_analytic_init(cls, mt, case: str = "baroclinic", perturbation: bool = True,
+                           device="cuda", dtype=torch.float32) -> "DycoreState":
+        """Build from an analytic test case (reference role:
+        ``pyFV3.initialization.analytic_init.init_analytic_state``). The case
+        ``"baroclinic"`` is ported; ``"tropicalcyclone"`` is not yet."""
+        if case == "baroclinic":
+            return cls.from_baroclinic_init(mt, perturbation=perturbation, device=device,
+                                            dtype=dtype)
+        if case == "tropicalcyclone":
+            raise NotImplementedError(
+                "the tropical-cyclone initial state (init_tropical_cyclone.py) is not ported "
+                "yet (ROADMAP queue 1 item 3)")
+        raise ValueError(f"unknown analytic init case {case!r}")
+
+    @classmethod
+    def from_baroclinic_init(cls, mt, perturbation: bool = True, moist: bool = False,
+                             device="cuda", dtype=torch.float32) -> "DycoreState":
+        """Build from the JW06 analytic state (see init_baroclinic).
+        ``moist`` is taken and ignored, as ``pace_tpu``'s is: the state is dry,
+        every tracer zero (ROADMAP queue 3)."""
         from .init_baroclinic import init_baroclinic_state
 
         st = init_baroclinic_state(mt, perturbation=perturbation)
@@ -150,3 +167,75 @@ class DycoreState:
             ),
             device=device, dtype=dtype,
         )
+
+
+# dims (beyond the leading shard axis S) and units for each field, for the
+# dataset export below
+FIELD_METADATA = {
+    "u": (("z", "y_interface", "x"), "m/s"),
+    "v": (("z", "y", "x_interface"), "m/s"),
+    "delp": (("z", "y", "x"), "Pa"),
+    "pt": (("z", "y", "x"), "degK"),
+    "w": (("z", "y", "x"), "m/s"),
+    "delz": (("z", "y", "x"), "m"),
+    "phis": (("y", "x"), "m^2 s^-2"),
+    "ps": (("y", "x"), "Pa"),
+    "pe": (("z_interface", "y", "x"), "Pa"),
+    "peln": (("z_interface", "y", "x"), "ln(Pa)"),
+    "pk": (("z_interface", "y", "x"), "(Pa)**kappa"),
+    "pkz": (("z", "y", "x"), "(Pa)**kappa"),
+    "omga": (("z", "y", "x"), "Pa/s"),
+    "ua": (("z", "y", "x"), "m/s"),
+    "va": (("z", "y", "x"), "m/s"),
+    "uc": (("z", "y", "x_interface"), "m/s"),
+    "vc": (("z", "y_interface", "x"), "m/s"),
+    "mfxd": (("z", "y", "x_interface"), "Pa m^2"),
+    "mfyd": (("z", "y_interface", "x"), "Pa m^2"),
+    "cxd": (("z", "y", "x_interface"), ""),
+    "cyd": (("z", "y_interface", "x"), ""),
+    "diss_estd": (("z", "y", "x"), ""),
+    "q_con": (("z", "y", "x"), "kg/kg"),
+}
+
+
+def _dataset_items(state: DycoreState):
+    for name, (dims, units) in FIELD_METADATA.items():
+        t = getattr(state, name)
+        if t is not None:
+            yield name, ("shard",) + dims, units, t.detach().cpu().numpy()
+    q = getattr(state, "q", None)
+    if q is not None:
+        for i, tname in enumerate(TRACER_NAMES):
+            yield tname, ("shard", "z", "y", "x"), "kg/kg", q[:, i].detach().cpu().numpy()
+
+
+def as_dataset(state: DycoreState):
+    """Name -> {dims, units, data} (numpy on the host) for every populated
+    field, tracers unstacked by name: ``pace_tpu``'s ``as_dataset`` (reference
+    role: ``DycoreState.xr_dataset``) without an xarray dependency."""
+    return {
+        name: {"dims": dims, "units": units, "data": arr}
+        for name, dims, units, arr in _dataset_items(state)
+    }
+
+
+def to_netcdf(state: DycoreState, path: str) -> None:
+    """Write every populated field to one classic NetCDF-3 file with shared
+    named dimensions, as ``pace_tpu``'s ``to_netcdf`` does."""
+    from ...utils import netcdf3
+
+    dims: dict = {}
+    variables: dict = {}
+    for name, dnames, units, arr in _dataset_items(state):
+        full = []
+        for d, sz in zip(dnames, arr.shape):
+            # interface dims differ in length from their center dims
+            key = d
+            if key in dims and dims[key] != int(sz):
+                key = f"{d}{sz}"
+            dims.setdefault(key, int(sz))
+            full.append(key)
+        variables[name] = netcdf3.Variable(
+            dims=tuple(full), data=arr, attrs={"units": units}
+        )
+    netcdf3.write(path, netcdf3.NetCDF3File(dims=dims, variables=variables, attrs={}))

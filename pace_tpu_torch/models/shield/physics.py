@@ -30,6 +30,7 @@ from ... import constants
 from ...constants import TRACER_NAMES
 from ...ops.d2a2c import _dot3, cartesian_wind_centers, centers_to_x_ifaces, centers_to_y_ifaces
 from ...ops.stencil_utils import bcast_k
+from ...utils.ranges import stage_range
 from ..fv3.state import DycoreState
 from .band_radiation import BandRadiationConfig, band_radiation_step_fluxes
 from .held_suarez import HeldSuarezConfig, held_suarez_step
@@ -267,7 +268,8 @@ class Physics:
                                                       self.timestep, self.fv_sg_adj)
             state = dataclasses.replace(state, pt=pt_adj, q=q_adj)
         if "RJ_simple_physics" in self.schemes:
-            state = self._simple_physics(state)
+            with stage_range("SimplePhysics"):
+                state = self._simple_physics(state)
         if "held_suarez" in self.schemes:
             u_new, v_new, pt_new = held_suarez_step(
                 state.u, state.v, state.pt, state.pkz, _p_mid(state), state.ps, self.grid.f0,
@@ -277,44 +279,52 @@ class Physics:
         lw_dn_sfc = sw_dn_sfc = None
         t_surf = self._surface.tskin(sfc) if sfc is not None else None
         if "gray_radiation" in self.schemes:
-            cfg = self.radiation_config
-            sinlat = sin_latitude(self.grid.f0)
-            pt_new, lw_dn_sfc = gray_radiation_step_fluxes(
-                state.pt, state.pkz, state.pe, state.ps, sinlat * sinlat, self.timestep, cfg,
-                t_surf=t_surf, qv=state.q[:, _IQ["qvapor"]])
-            sw_dn_sfc = sw_down_surface(
-                sinlat * sinlat, cfg, lat=self.grid.lat_agrid, lon=self.grid.lon_agrid,
-                time_seconds=time_seconds).expand(state.ps.shape)
-            state = dataclasses.replace(state, pt=pt_new)
+            with stage_range("Radiation"):
+                cfg = self.radiation_config
+                sinlat = sin_latitude(self.grid.f0)
+                pt_new, lw_dn_sfc = gray_radiation_step_fluxes(
+                    state.pt, state.pkz, state.pe, state.ps, sinlat * sinlat, self.timestep,
+                    cfg, t_surf=t_surf, qv=state.q[:, _IQ["qvapor"]])
+                sw_dn_sfc = sw_down_surface(
+                    sinlat * sinlat, cfg, lat=self.grid.lat_agrid, lon=self.grid.lon_agrid,
+                    time_seconds=time_seconds).expand(state.ps.shape)
+                state = dataclasses.replace(state, pt=pt_new)
         if "band_radiation" in self.schemes:
-            qc = state.q[:, _IQ["qliquid"]] + state.q[:, _IQ["qice"]]
-            pt_new, lw_dn_sfc, sw_dn_sfc = band_radiation_step_fluxes(
-                state.pt, state.pkz, state.pe, state.ps, self.timestep,
-                self.band_radiation_config, qv=state.q[:, _IQ["qvapor"]], qc=qc, t_surf=t_surf)
-            state = dataclasses.replace(state, pt=pt_new)
+            with stage_range("Radiation"):
+                qc = state.q[:, _IQ["qliquid"]] + state.q[:, _IQ["qice"]]
+                pt_new, lw_dn_sfc, sw_dn_sfc = band_radiation_step_fluxes(
+                    state.pt, state.pkz, state.pe, state.ps, self.timestep,
+                    self.band_radiation_config, qv=state.q[:, _IQ["qvapor"]], qc=qc,
+                    t_surf=t_surf)
+                state = dataclasses.replace(state, pt=pt_new)
         # --- the interactive lower boundary: its fluxes drive the PBL and
         # the convection
         shf = lhf = None
         if sfc is not None:
-            forcing = self._surface_forcing(state, sw_dn_sfc, lw_dn_sfc, sfc)
-            fluxes, sfc = self._surface.step(forcing, sfc, self.timestep)
-            shf = fluxes["sensible_heat_flux"]
-            lhf = fluxes["latent_heat_flux"]
+            with stage_range("Surface"):
+                forcing = self._surface_forcing(state, sw_dn_sfc, lw_dn_sfc, sfc)
+                fluxes, sfc = self._surface.step(forcing, sfc, self.timestep)
+                shf = fluxes["sensible_heat_flux"]
+                lhf = fluxes["latent_heat_flux"]
         if "GFS_PBL" in self.schemes:
-            state = self._pbl(state, shf, lhf)
+            with stage_range("PBL"):
+                state = self._pbl(state, shf, lhf)
         conv_precip = None
         if "GFS_deep_convection" in self.schemes:
-            state, conv_precip = self._sas(state, self.deep_config, shf, lhf)
+            with stage_range("DeepConvection"):
+                state, conv_precip = self._sas(state, self.deep_config, shf, lhf)
         if "GFS_shallow_convection" in self.schemes:
-            state, _ = self._sas(state, self.sas_config, shf, lhf)
+            with stage_range("ShallowConvection"):
+                state, _ = self._sas(state, self.sas_config, shf, lhf)
         if "GFS_microphysics" not in self.schemes:
             if sfc is not None and conv_precip is not None:
                 sfc = dataclasses.replace(sfc, precip=conv_precip)
             return state, sfc
         phy = dycore_to_physics(state)
-        qv, ql, qi, qr, qs, qg, t, precip = microphysics_step(
-            phy.qvapor, phy.qliquid, phy.qice, phy.qrain, phy.qsnow, phy.qgraupel, phy.pt,
-            phy.p_mid, phy.delp, self.timestep, self.config)
+        with stage_range("Microphysics"):
+            qv, ql, qi, qr, qs, qg, t, precip = microphysics_step(
+                phy.qvapor, phy.qliquid, phy.qice, phy.qrain, phy.qsnow, phy.qgraupel, phy.pt,
+                phy.p_mid, phy.delp, self.timestep, self.config)
         phy = dataclasses.replace(phy, qvapor=qv, qliquid=ql, qice=qi, qrain=qr, qsnow=qs,
                                   qgraupel=qg, pt=t, precip=precip)
         if sfc is not None:

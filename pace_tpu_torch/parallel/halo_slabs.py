@@ -26,9 +26,18 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from .halo import _STAGGER_OFFSETS, _VECTOR_KINDS, HaloExchanger
-from .halo_kernel import ExchangePlan, exchange
+from ..utils.ranges import stage_range
+from .halo_kernel import ExchangePlan
+from .halo_kernel import exchange as _exchange
 
 _CORNER_NAMES = ("SW", "SE", "NW", "NE")
+
+
+def exchange(inputs, plan: ExchangePlan):
+    """One exchange inside the "HaloExchange" stage range, which the driver's
+    stage profile reads (``collect_communication``)."""
+    with stage_range("HaloExchange"):
+        return _exchange(inputs, plan)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,17 @@
-"""A strict dict -> dataclass loader for configurations.
+"""A strict dict -> dataclass loader for configurations, and the ``{type,
+config}`` registry of pluggable components.
 
-Port of ``pace_tpu.utils.registry``'s ``ConfigError``, ``from_dict`` and
-``_convert`` (reference role: the ``dacite`` loading of the driver's YAML
-sections, strict about unknown keys). Pure Python; the port keeps its own
-copy so that it imports nothing of ``pace_tpu``. ``Registry`` (the
-``{type, config}`` factory) comes with the driver.
+Port of ``pace_tpu.utils.registry`` (reference role: the ``dacite`` loading
+of the driver's YAML sections, strict about unknown keys, and ``ndsl``'s
+``Registry``). Pure Python; the port keeps its own copy so that it imports
+nothing of ``pace_tpu``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import Any, Dict, Mapping, Type, Union, get_args, get_origin
+from typing import Any, Callable, Dict, Mapping, Type, Union, get_args, get_origin
 
 
 class ConfigError(ValueError):
@@ -89,3 +89,44 @@ def _convert(tp, value, where: str):
                 f"{where}: expected {tp.__name__}, got {type(value).__name__}"
             )
     return value
+
+
+class Registry:
+    """Registry of named config types, built from ``{type, config}`` dicts.
+
+    Example::
+
+        registry = Registry()
+
+        @registry.register("analytic")
+        @dataclasses.dataclass
+        class AnalyticInit:
+            case: str = "baroclinic"
+
+        obj = registry.from_dict({"type": "analytic", "config": {"case": "baroclinic"}})
+    """
+
+    def __init__(self, default_type: str | None = None):
+        self._types: Dict[str, Type] = {}
+        self.default_type = default_type
+
+    def register(self, type_name: str) -> Callable[[Type], Type]:
+        def decorator(cls: Type) -> Type:
+            self._types[type_name] = cls
+            return cls
+
+        return decorator
+
+    @property
+    def registered_types(self):
+        return dict(self._types)
+
+    def from_dict(self, config: Mapping[str, Any]):
+        type_name = config.get("type", self.default_type)
+        if type_name is None:
+            raise ConfigError("no 'type' key and no default type registered")
+        if type_name not in self._types:
+            raise ConfigError(
+                f"unknown type {type_name!r}; registered: {sorted(self._types)}"
+            )
+        return from_dict(self._types[type_name], config.get("config", {}))

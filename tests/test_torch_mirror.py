@@ -1,5 +1,7 @@
 """The port stands alone: importing every module of pace_tpu_torch, and
-chip_smoke.py, loads neither JAX nor any module of pace_tpu.
+chip_smoke.py, loads neither JAX nor any module of pace_tpu, and neither
+PyYAML nor click (the driver reads its configs with its own YAML subset
+reader and parses its command line with argparse).
 
 The imports run in a fresh interpreter, because this test session has
 imported JAX already and would hide a leak.
@@ -25,6 +27,7 @@ leaks = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
     or m == "pace_tpu" or m.startswith("pace_tpu.")
+    or m.split(".")[0] in ("yaml", "_yaml", "click")
 )
 print(json.dumps({"modules": names, "leaks": leaks}))
 """
@@ -85,5 +88,23 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.models.shield.seaice",
         "pace_tpu_torch.models.shield.held_suarez",
         "pace_tpu_torch.models.shield.simple_physics",
+        "pace_tpu_torch.utils.logging",
+        "pace_tpu_torch.utils.filesystem",
+        "pace_tpu_torch.utils.native",
+        "pace_tpu_torch.utils.netcdf3",
+        "pace_tpu_torch.utils.zarr_v2",
+        "pace_tpu_torch.utils.yaml_subset",
+        "pace_tpu_torch.utils.ranges",
+        "pace_tpu_torch.driver",
+        "pace_tpu_torch.driver.config",
+        "pace_tpu_torch.driver.diagnostics",
+        "pace_tpu_torch.driver.driver",
+        "pace_tpu_torch.driver.grid",
+        "pace_tpu_torch.driver.initialization",
+        "pace_tpu_torch.driver.performance",
+        "pace_tpu_torch.driver.restart",
+        "pace_tpu_torch.driver.run",
+        "pace_tpu_torch.driver.safety_checks",
+        "pace_tpu_torch.driver.stage_profile",
     }
     assert expected <= set(result["modules"])
