@@ -16,10 +16,12 @@ Hopper kernels (``csrc/``, built with ``nvcc`` at first use).
   the C-grid half of the acoustic substep
 - ``demos``: the Williamson case-1 tracer-transport demo and the C-grid
   half step from the baroclinic-wave state
+- ``quantity``: the dims/units/halo-aware container over a tensor
 """
 
 from . import constants, dtypes
+from .quantity import Quantity, QuantityMetadata, zeros
 
 __version__ = "0.1.0"
 
-__all__ = ["constants", "dtypes", "__version__"]
+__all__ = ["constants", "dtypes", "Quantity", "QuantityMetadata", "zeros", "__version__"]

@@ -8,11 +8,20 @@ Each step runs eagerly on the driver's device, ``cuda`` unless the caller
 asks for ``cpu``; the dtype comes from ``precision`` (64: float64, else
 float32), with no process-wide switch.
 
+``debug_checks`` runs the dycore with the per-stage sanitizer
+(:mod:`pace_tpu_torch.testing.sanitizer`), which raises at the first stage
+with a non-finite value, a non-positive ``delp`` or a tracer below its
+floor. ``pair_debug`` steps a replica of the dycore beside the model: the
+primary records every stage into a ``SnapshotCheckpointer``, the replica
+compares its own stages with the recording through a
+``PairStageComparator``, and the first difference raises, naming the
+stage, the variable and the hit; the replica runs the dycore alone, as
+``pace_tpu``'s does. Both take each stage's variables to the host.
+
 Not ported, and refused with ``NotImplementedError`` rather than skipped:
 the device mesh (``mesh_config.enabled``) and the halo backends ``null``,
-``write`` and ``read`` (ROADMAP queue 1 item 7), ``pair_debug`` (the stage
-checkpointer, item 6), ``debug_checks`` (the sanitizer, item 8) and
-``grid_indexing`` (``dsl.py``, item 8).
+``write`` and ``read`` (ROADMAP queue 1 item 7), and ``grid_indexing``
+(``dsl.py``, item 8).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..grid.grid_data import GridData
 from ..models.fv3.dycore import DynamicalCore
 from ..utils.logging import get_logger
 from .config import DriverConfig
+from .fortran_restart import coupler_elapsed_seconds, is_fortran_restart
 from .performance import Timer
 from .restart import (
     has_surface_restart, load_surface_restart, restart_time, save_restart,
@@ -57,13 +67,6 @@ class Driver:
                 "and read are not ported yet (ROADMAP queue 1 item 7)")
         if config.comm_config.type != "exchange":
             raise ValueError(f"unknown comm type {config.comm_config.type!r}")
-        if config.pair_debug:
-            raise NotImplementedError(
-                "pair_debug: the stage checkpointer is not ported yet (ROADMAP queue 1 item 6)")
-        if config.debug_checks:
-            raise NotImplementedError(
-                "debug_checks: the per-stage sanitizer is not ported yet (ROADMAP queue 1 "
-                "item 8)")
         dtype = torch.float64 if config.precision == 64 else torch.float32
         self.dtype = dtype
 
@@ -79,8 +82,27 @@ class Driver:
         self.state = config.initialization.get_dycore_state(
             self.metric_terms, self.device, dtype
         )
+        checkpointer = None
+        if config.debug_checks:
+            from ..testing.sanitizer import make_sanitizer
+
+            checkpointer = make_sanitizer()
+            logger.info("debug_checks: per-stage sanitizer active")
+        # pair_debug: a second dycore steps a replica of the state, and its
+        # stages are compared with the primary's recording of the same step
+        self.dycore_pair = None
+        self._pair_cmp = None
+        if config.pair_debug:
+            from ..testing.checkpointer import PairStageComparator, SnapshotCheckpointer
+
+            checkpointer = SnapshotCheckpointer()
+            self._pair_cmp = PairStageComparator(checkpointer)
+            self.dycore_pair = DynamicalCore(self.grid_data, self.halo, config.dycore_config,
+                                             config.dt_atmos, checkpointer=self._pair_cmp)
+            self.state_pair = self.state
         self.dycore = DynamicalCore(
-            self.grid_data, self.halo, config.dycore_config, config.dt_atmos
+            self.grid_data, self.halo, config.dycore_config, config.dt_atmos,
+            checkpointer=checkpointer,
         )
 
         self.physics = None
@@ -119,15 +141,20 @@ class Driver:
             )
 
         # a restart resumes the model clock (the diurnal forcing and the
-        # output times continue)
+        # output times continue); a Fortran restart's clock is coupler.res's
+        # current time less its start time
         self.time_seconds = 0.0
         init = config.initialization
         if init.type in ("restart", "fortran_restart"):
             icfg = init.config or {}
+            path = icfg.get("path", "RESTART")
             self.time_seconds = float(icfg.get("start_time_seconds", 0.0))
             if not self.time_seconds:
                 try:
-                    self.time_seconds = restart_time(icfg.get("path", "RESTART"))
+                    if init.type == "fortran_restart" or is_fortran_restart(path):
+                        self.time_seconds = coupler_elapsed_seconds(path)
+                    else:
+                        self.time_seconds = restart_time(path)
                 except (OSError, KeyError):
                     pass
         self._step_count = 0
@@ -194,12 +221,21 @@ class Driver:
             self.diagnostics.store(self.time_seconds, self.state, self._physics_extras())
         for _ in range(n):
             t0 = time.perf_counter()
+            if self._pair_cmp is not None:
+                # a fresh stage recording for this step's comparison
+                self._pair_cmp.begin_step()
             with self.timer.clock("mainloop"):
                 self.state = self.dycore.step_dynamics(self.state)
                 if self.physics is not None:
                     self.state = self.physics(self.state, self.time_seconds)
             # wait for the device so that each step's time is honest
             self._sync()
+            if self.dycore_pair is not None:
+                # the replica's comparator raises at the first differing
+                # stage and variable; the whole-state check after the step
+                # stays as the outer net
+                self.state_pair = self.dycore_pair.step_dynamics(self.state_pair)
+                self._check_pair()
             self.performance.record_step(time.perf_counter() - t0)
             self.time_seconds += self.config.dt_atmos
             self._step_count += 1
@@ -257,6 +293,12 @@ class Driver:
                 stages=PHYSICS_STAGES,
             ))
         self.performance.stage_device_seconds = stage_times
+
+    def _check_pair(self):
+        for name in ("u", "v", "delp", "pt"):
+            if not torch.equal(getattr(self.state, name), getattr(self.state_pair, name)):
+                raise RuntimeError(
+                    f"pair_debug: replica divergence in {name!r} at step {self._step_count}")
 
     def _end_of_step_actions(self):
         cfg = self.config

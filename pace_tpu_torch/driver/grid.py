@@ -2,9 +2,9 @@
 
 Port of ``pace_tpu.driver.grid`` (reference role: ``GridInitializerSelector``
 with ``GeneratedGridConfig``: stretch_factor, lon_target, lat_target,
-grid_type, dx_const, dy_const, deglat, eta_file). ``type: generated`` is
-ported; ``type: external`` reaches ``MetricTerms.from_external``, which
-raises until the netCDF supergrid path is ported (ROADMAP queue 1 item 3).
+grid_type, dx_const, dy_const, deglat, eta_file). ``type: generated``
+builds the gnomonic (optionally Schmidt-stretched) cube; ``type: external``
+reads FRE-NCtools supergrid tiles through ``MetricTerms.from_external``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Pluggable initial conditions.
 
 Port of ``pace_tpu.driver.initialization`` (reference role:
-``InitializerSelector``): ``baroclinic``, ``analytic`` (case
-``baroclinic``), ``predefined`` and ``restart`` are ported. A restart
-directory in the Fortran format, and the types ``fortran_restart``,
-``tropicalcyclone`` and ``savepoint``, raise ``NotImplementedError``, which
-names the ROADMAP item that ports them.
+``InitializerSelector``): ``baroclinic``, ``tropicalcyclone``, ``analytic``
+(case ``baroclinic`` or ``tropicalcyclone``), ``predefined``, ``restart``
+(the port's own restart files, or a Fortran restart directory, told apart
+by ``fv_core.res.nc``), ``fortran_restart`` and ``savepoint`` (an
+``FVDynamics-In`` file read by :class:`~pace_tpu_torch.testing.translate.
+TranslateFVDynamics`).
 
 ``AnalyticInitConfig.moist`` is read and dropped, as ``pace_tpu`` drops it
 (its initializer passes only ``perturbation``): configs with ``moist:
@@ -15,17 +16,10 @@ true`` start with every tracer at zero (ROADMAP queue 3).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional
 
 from ..models.fv3.state import DycoreState
-
-_NOT_PORTED = {
-    "fortran_restart": "Fortran restarts (fortran_restart.py, ROADMAP queue 1 item 3)",
-    "tropicalcyclone": "the tropical-cyclone initial state (init_tropical_cyclone.py, "
-                       "ROADMAP queue 1 item 3)",
-    "savepoint": "savepoint initialization (testing/translate.py, ROADMAP queue 1 item 8)",
-}
+from .fortran_restart import is_fortran_restart
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +35,6 @@ class RestartInitConfig:
     start_time_seconds: float = 0.0
 
 
-def is_fortran_restart(path: str) -> bool:
-    """Whether ``path`` holds a Fortran-format restart, which the reference
-    detects by the presence of ``fv_core.res.nc``."""
-    return os.path.exists(os.path.join(path, "fv_core.res.nc"))
-
-
 @dataclasses.dataclass
 class InitializationConfig:
     type: str = "baroclinic"
@@ -55,20 +43,18 @@ class InitializationConfig:
     def get_dycore_state(self, mt, device, dtype) -> DycoreState:
         from ..utils.registry import from_dict
 
-        if self.type in _NOT_PORTED:
-            raise NotImplementedError(f"{_NOT_PORTED[self.type]} is not ported yet")
-        if self.type in ("baroclinic", "analytic"):
+        if self.type in ("baroclinic", "analytic", "tropicalcyclone"):
             cfg = from_dict(AnalyticInitConfig, self.config or {})
-            case = cfg.case if self.type == "analytic" else "baroclinic"
+            case = cfg.case if self.type == "analytic" else self.type
             return DycoreState.from_analytic_init(
                 mt, case=case, perturbation=cfg.perturbation, device=device, dtype=dtype
             )
-        if self.type == "restart":
+        if self.type in ("restart", "fortran_restart"):
             cfg = from_dict(RestartInitConfig, self.config or {})
-            if is_fortran_restart(cfg.path):
-                raise NotImplementedError(
-                    f"{cfg.path} holds a Fortran restart: "
-                    f"{_NOT_PORTED['fortran_restart']} is not ported yet")
+            if self.type == "fortran_restart" or is_fortran_restart(cfg.path):
+                from .fortran_restart import load_fortran_restart
+
+                return load_fortran_restart(cfg.path, mt, device, dtype)
             from .restart import load_restart
 
             return load_restart(cfg.path, device, dtype)
@@ -80,4 +66,18 @@ class InitializationConfig:
                     "DycoreState} (Python API only, like the reference)"
                 )
             return self.config["dycore_state"]
+        if self.type == "savepoint":
+            # recorded savepoint data, read by the translate framework
+            from ..testing.translate import TranslateFVDynamics
+
+            cfg = dict(self.config or {})
+            if "path" not in cfg:
+                raise ValueError(
+                    "savepoint initialization requires config={'path': "
+                    "<savepoint .nc/.h5>, 'data_halo': <halo cells in the "
+                    "serialized slabs, default 0>}"
+                )
+            tr = TranslateFVDynamics(mt, data_halo=int(cfg.get("data_halo", 0)), device=device,
+                                     dtype=dtype)
+            return tr.state_from_inputs(tr.collect_input_data(cfg["path"]))
         raise NotImplementedError(f"initialization type {self.type!r}")

@@ -184,10 +184,41 @@ class MetricTerms:
         eta_file: Optional[str] = None,
         radius: float = RADIUS,
     ) -> "MetricTerms":
-        """Metric terms from FRE-NCtools supergrid tile files: not ported yet
-        (``pace_tpu.grid.generation.MetricTerms.from_external``)."""
-        raise NotImplementedError(
-            "external netCDF grids are not ported to pace_tpu_torch yet"
+        """Build metric terms from FRE-NCtools supergrid tile files (reference
+        ``MetricTerms.from_external`` / ExternalNetcdfGridConfig). ``tile_paths``
+        is a list of six NetCDF-3 files with variables ``x``/``y`` — supergrid
+        longitudes/latitudes in degrees, shape (2n+1, 2n+1) — or a format
+        string with ``{tile}`` resolving to those paths (tiles numbered
+        1..6)."""
+        from ..utils import netcdf3
+
+        if isinstance(tile_paths, str):
+            tile_paths = [tile_paths.format(tile=t + 1) for t in range(6)]
+        tiles = []
+        for p in tile_paths:
+            f = netcdf3.read(p)
+            x = np.asarray(f.variables["x"].data, dtype=np.float64)
+            y = np.asarray(f.variables["y"].data, dtype=np.float64)
+            exp = 2 * spec.n_tile + 1
+            if x.shape != (exp, exp):
+                raise ValueError(
+                    f"{p}: supergrid shape {x.shape} != expected ({exp},{exp})"
+                )
+            lon = np.deg2rad(x)
+            lat = np.deg2rad(y)
+            tiles.append(
+                np.stack(
+                    [
+                        np.cos(lat) * np.cos(lon),
+                        np.cos(lat) * np.sin(lon),
+                        np.sin(lat),
+                    ],
+                    axis=-1,
+                )
+            )
+        ext = np.stack(tiles)  # (6, 2n+1, 2n+1, 3)
+        return _generate_cubed_sphere(
+            cls, spec, eta_file, radius, external_supergrid=ext
         )
 
 
@@ -206,7 +237,9 @@ def _positions_for(topology, tile, y, x, n, schmidt_params):
     return pos
 
 
-def _generate_cubed_sphere(cls, spec: GridSpec, eta_file, radius) -> "MetricTerms":
+def _generate_cubed_sphere(
+    cls, spec: GridSpec, eta_file, radius, external_supergrid=None
+) -> "MetricTerms":
     topo = cubed_sphere_topology()
     part = CubedSpherePartitioner(TilePartitioner(spec.layout))
     halo = HaloExchanger(topo, part, spec.n_tile, spec.n_halo)
@@ -233,9 +266,21 @@ def _generate_cubed_sphere(cls, spec: GridSpec, eta_file, radius) -> "MetricTerm
         t, py, px = halo._shard_info(s)
         gy = py * nsy + (rr / 2.0 - h)
         gx = px * nsx + (cc / 2.0 - h)
-        sg[s] = _positions_for(
-            topo, np.full(rr.shape, t), gy, gx, n, schmidt_params
-        )
+        if external_supergrid is None:
+            sg[s] = _positions_for(
+                topo, np.full(rr.shape, t), gy, gx, n, schmidt_params
+            )
+        else:
+            # external grid: resolve chart coordinates through the topology,
+            # then LOOK UP the neighbor tiles' supergrid points (halo points
+            # land exactly on neighbor supergrid nodes)
+            t2, y2, x2, _A, valid = topo.resolve_points(
+                np.full(rr.shape, t), gy, gx, n, corner_fold="x"
+            )
+            assert valid.all()
+            iy = np.clip(np.rint(2.0 * y2).astype(np.int64), 0, 2 * n)
+            ix = np.clip(np.rint(2.0 * x2).astype(np.int64), 0, 2 * n)
+            sg[s] = external_supergrid[t2, iy, ix]
 
     # views
     P_corner = sg[:, 0::2, 0::2]  # (S, Ys+1, Xs+1, 3)

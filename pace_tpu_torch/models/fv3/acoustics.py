@@ -109,7 +109,7 @@ class CGridHalf:
 
 
 def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfig,
-                dt2: float, ptop: float, phis_folds=None) -> CGridHalf:
+                dt2: float, ptop: float, phis_folds=None, checkpointer=None) -> CGridHalf:
     """The C-grid half of one acoustic substep, from the substep's halo
     exchanges to the exchanged C-grid winds the D-grid solver advects with.
 
@@ -119,7 +119,9 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
     carried by the nonhydrostatic configuration only, which needs both.
     ``phis_folds`` is ``halo.update_scalar_folds(phis)``, constant over the
     substeps; it is computed here when absent. :func:`d_grid_half` takes the
-    result, and :func:`_one_substep` calls both.
+    result, and :func:`_one_substep` calls both. A stage ``checkpointer``
+    sees ``C_SW-In`` (``u, v, delp, pt``) and ``C_SW-Out`` (``uc, vc,
+    delpc, ptc`` of ``c_sw``).
     """
     hydro = config.hydrostatic
     if not hydro and (w is None or delz is None):
@@ -141,8 +143,12 @@ def c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config: AcousticConfi
     w_x, w_y = (pairs[2][0], CornerPatch(pairs[2][1])) if w is not None else (None, None)
 
     # --- C-grid half step + its pressure gradient
+    if checkpointer is not None:
+        checkpointer("C_SW-In", u=u, v=v, delp=delp, pt=pt)
     with stage_range("C_SW"):
         cg = c_sw(u_y, v_x, delp_x, pt_x, grid, halo, dt2)
+    if checkpointer is not None:
+        checkpointer("C_SW-Out", uc=cg.uc, vc=cg.vc, delpc=cg.delpc, ptc=cg.ptc)
     nh = {}
     if hydro:
         _pe, _peln, pkc, pkz_c, gz_c = hydrostatic_interfaces_best(
@@ -225,7 +231,7 @@ class DGridHalf:
 
 
 def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
-                ptop: float, phis) -> DGridHalf:
+                ptop: float, phis, checkpointer=None) -> DGridHalf:
     """The D-grid half of one acoustic substep from the result of
     :func:`c_grid_half`, up to and including the vertical solve.
 
@@ -242,7 +248,9 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
 
     ``u, v`` of the result are the winds after ``d_sw`` alone:
     :func:`_one_substep` applies the pressure gradient, ``ray_fast`` and the
-    final D-grid interface sync to them.
+    final D-grid interface sync to them. A stage ``checkpointer`` sees
+    ``D_SW-Out`` (``u, v, delp, pt`` and, nonhydrostatic, ``w`` of
+    ``d_sw``).
     """
     hydro = config.hydrostatic
     if not hydro and (half.w_x is None or half.zh_x is None):
@@ -256,6 +264,9 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
             half.w_x, half.w_y, half.uc_x, half.vc_x, half.uc_y, half.vc_y, cg.divg_d,
             grid, halo, dt, config.d_sw,
         )
+    if checkpointer is not None:
+        checkpointer("D_SW-Out", u=ds.u, v=ds.v, delp=ds.delp, pt=ds.pt,
+                     w=ds.w if half.w_x is not None else None)
     pt = ds.pt
     if ds.heat is not None and config.d_sw.d_con > 0.0:
         # dissipation heating: dT = d_con*heat/cv_air capped at
@@ -322,7 +333,7 @@ class AcousticResult:
 
 
 def acoustic_loop(u, v, w, delp, pt, phis, grid, halo, config: AcousticConfig,
-                  dt_atmos_k: float, delz=None) -> AcousticResult:
+                  dt_atmos_k: float, delz=None, checkpointer=None) -> AcousticResult:
     """Run ``n_split`` acoustic substeps of length ``dt_atmos_k / n_split``.
 
     Inputs are stacked tensors (S, [K,] Y, X); ``pt`` is virtual potential
@@ -335,6 +346,8 @@ def acoustic_loop(u, v, w, delp, pt, phis, grid, halo, config: AcousticConfig,
     substep applies the full PGF and the blend starts at the second (the
     perturbation pressure has no initial value). The substeps run as a
     Python loop; each one's intermediates are released when it returns.
+    A stage ``checkpointer`` sees each substep's ``C_SW-In``, ``C_SW-Out``
+    and ``D_SW-Out``.
     """
     if not config.hydrostatic and (w is None or delz is None):
         raise ValueError("nonhydrostatic mode requires w and delz")
@@ -359,7 +372,7 @@ def acoustic_loop(u, v, w, delp, pt, phis, grid, halo, config: AcousticConfig,
     acc = None
     for _ in range(config.n_split):
         res = _one_substep(u, v, w, delp, pt, delz, phis, grid, halo, config, dt, dt2, ptop,
-                           phis_folds=phis_folds, dugf_prev=dugf)
+                           phis_folds=phis_folds, dugf_prev=dugf, checkpointer=checkpointer)
         u, v, w, delp, pt, delz = res[:6]
         new = res[6:6 + n_acc]
         # a zero start would add nothing: the first substep's values are the sums
@@ -374,7 +387,7 @@ def acoustic_loop(u, v, w, delp, pt, phis, grid, halo, config: AcousticConfig,
 
 
 def _one_substep(u, v, w, delp, pt, delz, phis, grid, halo, config, dt, dt2, ptop,
-                 phis_folds=None, dugf_prev=None):
+                 phis_folds=None, dugf_prev=None, checkpointer=None):
     """One acoustic substep; returns ``(u, v, w, delp, pt, delz, mfx, mfy,
     cx, cy, xfx, yfx[, heat][, (du_pgf, dv_pgf)])`` as ``pace_tpu``'s does.
     ``dugf_prev``: the previous substep's D-grid pressure-gradient increments
@@ -383,8 +396,8 @@ def _one_substep(u, v, w, delp, pt, delz, phis, grid, halo, config, dt, dt2, pto
     if hydro:
         w, delz = None, None
     chalf = c_grid_half(u, v, w, delp, pt, delz, phis, grid, halo, config, dt2, ptop,
-                        phis_folds=phis_folds)
-    dh = d_grid_half(chalf, grid, halo, config, dt, ptop, phis)
+                        phis_folds=phis_folds, checkpointer=checkpointer)
+    dh = d_grid_half(chalf, grid, halo, config, dt, ptop, phis, checkpointer=checkpointer)
     del chalf
     u, v, w, delz = dh.u, dh.v, dh.w, dh.delz
     beta = config.beta

@@ -200,16 +200,19 @@ class DynamicalCore:
         core = DynamicalCore(grid_data, halo, config, dt_atmos)
         state = core.step_dynamics(state)
 
-    A stage ``checkpointer`` (ROADMAP queue 1 item 6) is not ported and
-    raises ``NotImplementedError`` here, rather than being skipped by the
-    step.
+    ``checkpointer``: an optional stage checkpointer
+    (:mod:`pace_tpu_torch.testing.checkpointer`), called as
+    ``checkpointer(stage, **variables)`` at ``pace_tpu``'s stages, with its
+    names and variables, in its order: ``FVDynamics-In``, then for each
+    outer step ``C_SW-In``, ``C_SW-Out`` and ``D_SW-Out`` in each acoustic
+    substep, ``Tracer2D1L-In``, ``Tracer2D1L-Out``, ``Remapping-In`` and
+    ``Remapping-Out``, and last ``FVDynamics-Out``. Without one the step
+    fires nothing.
     """
 
     def __init__(self, grid, halo, config: DynamicalCoreConfig, timestep: float,
                  checkpointer=None):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "stage checkpointers are not ported yet (ROADMAP queue 1 item 6)")
+        self.checkpointer = checkpointer
         self.grid = grid
         self.halo = halo
         self.config = config
@@ -233,6 +236,9 @@ class DynamicalCore:
             delz = None
         self.tracer_subcycles = []
         self.energy_fix_dT = []
+        ckpt = self.checkpointer
+        if ckpt is not None:
+            ckpt("FVDynamics-In", u=u, v=v, w=w, delp=delp, pt=pt, q=q, delz=delz)
         diss_acc = None
         for _ in range(cfg.k_split):
             u, v, w, delp, pt, q, delz, aux = self._k_split_body(
@@ -252,6 +258,8 @@ class DynamicalCore:
         u_y, v_x = self.halo.update_vector_fold_pair(u, v, kind="dgrid")
         ua, va, uc, vc, _, _ = d2a2c_vect(u_y, v_x, grid)
         del u_y, v_x
+        if ckpt is not None:
+            ckpt("FVDynamics-Out", u=u, v=v, w=w, delp=delp, pt=pt, q=q, delz=delz)
 
         return dataclasses.replace(
             state, u=u, v=v, ua=ua, va=va, uc=uc, vc=vc,
@@ -270,13 +278,16 @@ class DynamicalCore:
         cfg = self.config
         grid, halo = self.grid, self.halo
         dt_k = self.timestep / cfg.k_split
+        ckpt = self.checkpointer
         delp0 = delp
         # the stage ranges carry the reference's timer names, which the
         # driver's stage profile reads
         with stage_range("DynCore"):
             res = acoustic_loop(u, v, w, delp, pt, phis, grid, halo, cfg.acoustic(), dt_k,
-                                delz=delz)
+                                delz=delz, checkpointer=ckpt)
         u, v, w, delz = res.u, res.v, res.w, res.delz
+        if ckpt is not None:
+            ckpt("Tracer2D1L-In", q=q, delp=delp0)
 
         # tracer transport through the accumulated mass fluxes; the sub-cycle
         # count (one host sync) is taken here so that the step can report it
@@ -289,6 +300,9 @@ class DynamicalCore:
                                     dynamic=False)
         del _dp
         delp, pt = res.delp, res.pt
+        if ckpt is not None:
+            ckpt("Tracer2D1L-Out", q=q)
+            ckpt("Remapping-In", u=u, v=v, w=w, delp=delp, pt=pt, q=q, delz=delz)
 
         with stage_range("Remapping"):
             # vertical remap back to the hybrid reference coordinate; the
@@ -326,6 +340,8 @@ class DynamicalCore:
                     new["qcld"] = qa
                 q = torch.stack([new.get(n, q[:, i]) for i, n in enumerate(TRACER_NAMES)], dim=1)
                 del p_mid, qv, ql, qi, qr, qs, qg, qa, new
+        if ckpt is not None:
+            ckpt("Remapping-Out", u=u, v=v, w=w, delp=delp, pt=pt, q=q, delz=delz)
 
         # the fv_dynamics tail: sponge, slow Rayleigh damping, fill
         if cfg.n_sponge > 0 and cfg.d_ext > 0.0:

@@ -113,15 +113,16 @@ class DycoreState:
     def from_analytic_init(cls, mt, case: str = "baroclinic", perturbation: bool = True,
                            device="cuda", dtype=torch.float32) -> "DycoreState":
         """Build from an analytic test case (reference role:
-        ``pyFV3.initialization.analytic_init.init_analytic_state``). The case
-        ``"baroclinic"`` is ported; ``"tropicalcyclone"`` is not yet."""
+        ``pyFV3.initialization.analytic_init.init_analytic_state``): cases
+        ``"baroclinic"`` and ``"tropicalcyclone"``, the moist Reed-Jablonowski
+        vortex, which fills ``qvapor`` (``perturbation`` does not apply)."""
         if case == "baroclinic":
             return cls.from_baroclinic_init(mt, perturbation=perturbation, device=device,
                                             dtype=dtype)
         if case == "tropicalcyclone":
-            raise NotImplementedError(
-                "the tropical-cyclone initial state (init_tropical_cyclone.py) is not ported "
-                "yet (ROADMAP queue 1 item 3)")
+            from .init_tropical_cyclone import init_tropical_cyclone_state
+
+            return cls._from_init_dict(mt, init_tropical_cyclone_state(mt), device, dtype)
         raise ValueError(f"unknown analytic init case {case!r}")
 
     @classmethod

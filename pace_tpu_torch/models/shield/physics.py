@@ -14,8 +14,9 @@ EDMF PBL, shallow and deep SAS convection, gray and band radiation,
 Held-Suarez and the Reed-Jablonowski simple physics), with the dry
 convective adjustment (``fv_sg_adj``) and the interactive surfaces of
 ``surface.py``, whose state :class:`Physics` carries from call to call.
-:class:`Physics` refuses a stage checkpointer, which is not ported. The call
-runs eagerly and never writes into the state it is given.
+A stage checkpointer sees ``Physics-In`` and ``Physics-Out`` (``u, v, pt,
+delp, q``), as ``pace_tpu``'s does. The call runs eagerly and never writes
+into the state it is given.
 """
 
 from __future__ import annotations
@@ -226,9 +227,7 @@ class Physics:
         for s in schemes:
             if s not in PHYSICS_PACKAGES:
                 raise ValueError(f"unknown physics scheme {s!r}; available: {PHYSICS_PACKAGES}")
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "stage checkpointers are not ported yet (ROADMAP queue 1 item 6)")
+        self.checkpointer = checkpointer
         self.schemes = tuple(schemes)
         self.timestep = float(timestep)
         self.config = config or MicrophysicsConfig()
@@ -263,6 +262,9 @@ class Physics:
         return state
 
     def _call_impl(self, state: DycoreState, sfc, time_seconds):
+        if self.checkpointer is not None:
+            self.checkpointer("Physics-In", u=state.u, v=state.v, pt=state.pt,
+                              delp=state.delp, q=state.q)
         if self.fv_sg_adj > 0.0:
             pt_adj, q_adj = dry_convective_adjustment(state.pt, state.q, state.delp,
                                                       self.timestep, self.fv_sg_adj)
@@ -319,7 +321,7 @@ class Physics:
         if "GFS_microphysics" not in self.schemes:
             if sfc is not None and conv_precip is not None:
                 sfc = dataclasses.replace(sfc, precip=conv_precip)
-            return state, sfc
+            return self._finish(state, sfc)
         phy = dycore_to_physics(state)
         with stage_range("Microphysics"):
             qv, ql, qi, qr, qs, qg, t, precip = microphysics_step(
@@ -334,7 +336,13 @@ class Physics:
             if conv_precip is not None:
                 rate = rate + conv_precip
             sfc = dataclasses.replace(sfc, precip=rate)
-        return update_atmosphere_state(state, phy), sfc
+        return self._finish(update_atmosphere_state(state, phy), sfc)
+
+    def _finish(self, state, sfc):
+        if self.checkpointer is not None:
+            self.checkpointer("Physics-Out", u=state.u, v=state.v, pt=state.pt,
+                              delp=state.delp, q=state.q)
+        return state, sfc
 
     def _surface_forcing(self, state: DycoreState, sw_dn, lw_dn, sfc):
         """The lowest model level's forcing of ``lsm_step`` / ``seaice_step``;

@@ -19,8 +19,16 @@ attributes. Then the restarts cross: ``pace_tpu``'s final restart, loaded by
 the port's ``Driver`` through ``pace_tpu``'s ``restart.yaml`` and run one
 step, agrees with ``pace_tpu``'s run going on for that step, and the port's,
 loaded by ``pace_tpu``'s ``Driver`` through the port's ``restart.yaml``, with
-the port's. Last, the driver's refusals: no card without ``device="cpu"``, and
-the parts that are not ported raise ``NotImplementedError``.
+the port's. Then the driver's refusals: no card without ``device="cpu"``, and
+the parts that are not ported (the mesh and the halo backends of ROADMAP queue
+1 item 7, with the three comm configs) raise ``NotImplementedError``. Last,
+what queue 1 item 3 added: ``pair_debug`` (the replica equal to the model at
+every stage of a step of ``baroclinic_c12.yaml``) and ``debug_checks``
+build, and ``external_c12.yaml`` and
+``baroclinic_c12_read_restart_fortran.yaml`` run a step on the CPU from files
+the writers of ``chip_smoke.py`` make (``tropicalcyclone_c128.yaml`` and
+``baroclinic_c12_from_savepoint.yaml`` run in
+``tests/test_torch_tropical_cyclone.py`` and ``tests/test_torch_translate.py``).
 """
 
 import copy
@@ -284,15 +292,6 @@ def test_driver_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     ({"comm_config": {"type": "null"}}, "item 7"),
     ({"comm_config": {"type": "write"}}, "item 7"),
     ({"comm_config": {"type": "read"}}, "item 7"),
-    ({"pair_debug": True}, "item 6"),
-    ({"debug_checks": True}, "item 8"),
-    ({"initialization": {"type": "tropicalcyclone"}}, "item 3"),
-    ({"initialization": {"type": "analytic", "config": {"case": "tropicalcyclone"}}},
-     "item 3"),
-    ({"initialization": {"type": "fortran_restart"}}, "item 3"),
-    ({"initialization": {"type": "savepoint", "config": {"path": "x.nc"}}}, "item 8"),
-    ({"grid_config": {"type": "external", "config": {"tile_paths": "C12.tile{tile}.nc"}}},
-     "ported"),
 ])
 def test_unported_parts_raise(override, item):
     cfg = DriverConfig.from_dict({"nx_tile": 12, "nz": 4, **override})
@@ -300,12 +299,111 @@ def test_unported_parts_raise(override, item):
         Driver(cfg, device="cpu")
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the C12 runs of what queue 1 item 3 added:
+    they gain nothing from more, and the other workers of a parallel test
+    run hold the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name", ["baroclinic_c12_null_comm.yaml", "baroclinic_c12_comm_read.yaml",
+                                  "baroclinic_c12_comm_write.yaml"])
+def test_comm_configs_raise_naming_item_7(name):
+    raw = yaml_config(name, nz=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        Driver(DriverConfig.from_dict(raw), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"pair_debug": True},
+    {"debug_checks": True},
+    {"initialization": {"type": "tropicalcyclone"}},
+    {"initialization": {"type": "analytic", "config": {"case": "tropicalcyclone"}}},
+], ids=["pair_debug", "debug_checks", "tropicalcyclone", "analytic_tropicalcyclone"])
+def test_item_3_parts_are_taken(override, one_thread):
+    """What the driver refused until queue 1 item 3 was ported now builds."""
+    d = Driver(DriverConfig.from_dict({"nx_tile": 12, "nz": 4, "minutes": 0, **override}),
+               device="cpu")
+    if "pair_debug" in override:
+        assert d.dycore_pair is not None and d._pair_cmp.snapshot is d.dycore.checkpointer
+    elif "debug_checks" in override:
+        assert type(d.dycore.checkpointer).__name__ == "SanitizerCheckpointer"
+    else:
+        assert float(d.state.qvapor.max()) > 0.005 and d.dycore.checkpointer is None
+
+
 def test_fortran_restart_directory_raises(tmp_path):
+    """A directory with fv_core.res.nc is read as a Fortran restart: here
+    its tile files are missing, and the Fortran reader says so."""
     (tmp_path / "fv_core.res.nc").write_bytes(b"")
     cfg = DriverConfig.from_dict({"nx_tile": 12, "nz": 4, "initialization": {
         "type": "restart", "config": {"path": str(tmp_path)}}})
-    with pytest.raises(NotImplementedError, match="Fortran restart"):
+    with pytest.raises(FileNotFoundError, match="fv_core.res.tile1.nc"):
         Driver(cfg, device="cpu")
+
+
+def test_pair_debug_replicas_agree_at_every_stage(tmp_path, one_thread):
+    raw = with_paths(yaml_config("baroclinic_c12.yaml", nz=4, minutes=0), tmp_path)
+    raw.update(seconds=225, pair_debug=True)
+    d = Driver(DriverConfig.from_dict(raw), device="cpu")
+    d.step_all()
+    d.cleanup()
+    assert d._step_count == 1
+    fired = {k: len(v) for k, v in d._pair_cmp.snapshot.data.items()}
+    assert fired == d._pair_cmp._idx == {
+        "FVDynamics-In": 1, "C_SW-In": 5, "C_SW-Out": 5, "D_SW-Out": 5, "Tracer2D1L-In": 1,
+        "Tracer2D1L-Out": 1, "Remapping-In": 1, "Remapping-Out": 1, "FVDynamics-Out": 1}
+    for f in dataclasses.fields(d.state):
+        a, b = getattr(d.state, f.name), getattr(d.state_pair, f.name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f.name
+
+
+def test_external_config_runs(tmp_path, one_thread):
+    """examples/configs/external_c12.yaml (layout [2, 2]) cut to nz=4 and
+    one step, its tiles and eta file written beside it."""
+    import chip_smoke
+    from pace_tpu_torch.grid.eta import get_coefficients
+
+    os.makedirs(tmp_path / "C12_grid")
+    chip_smoke.write_fre_supergrid(str(tmp_path / "C12_grid" / "C12.tile{tile}.nc"), 12)
+    eta = get_coefficients(4)
+    chip_smoke.write_eta_file(str(tmp_path / "eta4.nc"), eta.ak, eta.bk)
+    raw = with_paths(yaml_config("external_c12.yaml", nz=4, minutes=0), tmp_path)
+    raw["seconds"] = raw["dt_atmos"]
+    raw["grid_config"]["config"].update(tile_paths=str(tmp_path / "C12_grid/C12.tile{tile}.nc"),
+                                        eta_file=str(tmp_path / "eta4.nc"))
+    raw["diagnostics_config"].pop("z_select")
+    d = Driver(DriverConfig.from_dict(raw), device="cpu")
+    assert np.array_equal(d.metric_terms.ak, eta.ak) and d.metric_terms.halo.n_shards == 24
+    d.step_all()
+    d.cleanup()
+    assert d._step_count == 1 and bool(torch.isfinite(d.state.u[..., H:-H, H:-H]).all())
+
+
+def test_read_restart_fortran_config_runs(tmp_path, one_thread):
+    """examples/configs/baroclinic_c12_read_restart_fortran.yaml cut to
+    nz=8 and one step, from a restart the port's state wrote."""
+    import chip_smoke
+    from pace_tpu_torch.grid.generation import GridSpec, MetricTerms
+
+    mt = MetricTerms.generate(GridSpec(n_tile=12, npz=8, layout=(1, 1)))
+    src = DycoreState.from_analytic_init(mt, device="cpu", dtype=torch.float64)
+    chip_smoke.write_fortran_restart(str(tmp_path / "restart_data"), src, mt)
+    raw = with_paths(yaml_config("baroclinic_c12_read_restart_fortran.yaml", nz=8, minutes=0),
+                     tmp_path)
+    raw["seconds"] = raw["dt_atmos"]
+    raw["initialization"]["config"]["path"] = str(tmp_path / "restart_data")
+    d = Driver(DriverConfig.from_dict(raw), device="cpu")
+    assert torch.equal(d.state.delp[..., H:-H, H:-H], src.delp[..., H:-H, H:-H])
+    assert d.time_seconds == 1800.0
+    d.step_all()
+    d.cleanup()
+    assert d._step_count == 1 and d.time_seconds == 1800.0 + raw["dt_atmos"]
+    assert bool(torch.isfinite(d.state.u[..., H:-H, H:-H]).all())
 
 
 def test_grid_indexing_raises():

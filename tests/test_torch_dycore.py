@@ -162,18 +162,21 @@ def test_config_refuses_what_pace_tpu_refuses(bad):
 
 @pytest.mark.parametrize("what", ["do_sat_adj", "checkpointer"])
 def test_unported_options_raise(steps, what):
-    """A stage checkpointer (ROADMAP queue 1 item 6) raises. do_sat_adj,
-    refused until the saturation adjustment was ported, now builds the
-    dycore with its saturation-adjustment configuration (the step itself is
-    held against pace_tpu's in test_torch_sat_adjust.py)."""
+    """Both options were refused until they were ported; now they build.
+    do_sat_adj builds the dycore with its saturation-adjustment
+    configuration (the step itself is held against pace_tpu's in
+    test_torch_sat_adjust.py); a stage checkpointer is kept and fired by
+    the step (the stages are held against pace_tpu's in
+    test_torch_checkpointer.py)."""
     if what == "do_sat_adj":
         core = dycore.DynamicalCore(steps["tgrid"], None,
                                     dycore.DynamicalCoreConfig(do_sat_adj=True), 200.0)
         assert core._sat_adjust_config == core.config.sat_adjust_config()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        dycore.DynamicalCore(steps["tgrid"], None, dycore.DynamicalCoreConfig(), 200.0,
-                             checkpointer=lambda *a, **k: None)
+    hook = lambda *a, **k: None  # noqa: E731
+    core = dycore.DynamicalCore(steps["tgrid"], None, dycore.DynamicalCoreConfig(), 200.0,
+                                checkpointer=hook)
+    assert core.checkpointer is hook
 
 
 def test_bench_config_is_bench_py_s():

@@ -106,5 +106,17 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.driver.run",
         "pace_tpu_torch.driver.safety_checks",
         "pace_tpu_torch.driver.stage_profile",
+        "pace_tpu_torch.driver.fortran_restart",
+        "pace_tpu_torch.models.fv3.init_tropical_cyclone",
+        "pace_tpu_torch.models.fv3.geos_wrapper",
+        "pace_tpu_torch.quantity",
+        "pace_tpu_torch.utils.namelist",
+        "pace_tpu_torch.testing",
+        "pace_tpu_torch.testing.checkpointer",
+        "pace_tpu_torch.testing.perturb",
+        "pace_tpu_torch.testing.sanitizer",
+        "pace_tpu_torch.testing.savepoint_cli",
+        "pace_tpu_torch.testing.translate",
+        "pace_tpu_torch.testing.validation",
     }
     assert expected <= set(result["modules"])

@@ -19,7 +19,7 @@ dycore benchmark's flags (k_split=2, n_split=2) followed by the c12 yaml's
 and by earthlike's ``Physics``, held on the compute domain as
 ``tests/test_torch_dycore.py`` holds the step. Tolerance: rtol 1e-12 with
 atol 1e-12 of each field's scale. Then the configurations' fields and
-defaults, the refusal of a checkpointer, and the oracle properties of
+defaults, the stages a checkpointer sees, and the oracle properties of
 ``tests/main/test_physics.py`` on the port's side.
 """
 
@@ -367,7 +367,7 @@ def test_example_physics_matches_over_two_calls(setup, case):
 
 
 # ----------------------------------------------------------------------
-# configurations and the checkpointer's refusal
+# configurations and the stages a checkpointer sees
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cls,jmod,tmod", [
@@ -391,9 +391,14 @@ def test_registry_and_sat_adjust_config_are_pace_tpu_s():
 
 
 def test_checkpointer_is_refused(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tphys.Physics(setup["tgrid"], ("GFS_microphysics",), DT,
-                      checkpointer=lambda *a, **k: None)
+    """Refused until the stage hooks were ported: a checkpointer is now
+    kept and sees Physics-In and Physics-Out (held against pace_tpu's in
+    test_torch_checkpointer.py)."""
+    seen = []
+    phys = tphys.Physics(setup["tgrid"], ("held_suarez",), DT,
+                         checkpointer=lambda stage, **v: seen.append((stage, sorted(v))))
+    phys(setup["tstate"])
+    assert seen == [(s, ["delp", "pt", "q", "u", "v"]) for s in ("Physics-In", "Physics-Out")]
 
 
 def test_unknown_scheme_is_an_error(setup):
