@@ -177,7 +177,28 @@ Phases (any failure raises and exits non-zero):
    bit-identical at every stage, its wall time beside the run without it;
    ``[driver from_savepoint]``: an ``FVDynamics-In`` file of the port's
    ``TranslateFVDynamics`` initializes the config; ``[geos]``: the GEOS
-   wrapper at C12, one step, float64, card against CPU within 1e-12.
+   wrapper at C12, one step, float64, card against CPU within 1e-12;
+9. what ROADMAP queue 1 items 7 and 8 added (``comm_mesh_phases``):
+   ``[comm]``: the three comm yamls as written (C12, npz=39, hydrostatic,
+   ``k_split=1``, ``n_split=2``, 4 steps): the write run records its
+   exchanges (halo kernel launched), the read run replays them with no
+   halo launch to the write run's final state bit for bit, the null run
+   launches no halo kernel and stops at its safety check after step 1 as
+   ``pace_tpu``'s does (and runs its 4 steps without the checks), and the
+   card's recording holds the tags of a CPU run of the port at the same
+   config; ``[mesh 1 rank]``: ``[driver baroclinic_c192]``'s config with
+   ``mesh_config.enabled`` on one NCCL rank (the phase fails where this
+   PyTorch has no NCCL): the state bit-identical to section 7's run, its
+   launches equal, its ms/step beside that run's; ``[mesh 3 ranks]``: the
+   config cut to C48 on layout [2, 2], 2 steps, in three processes of this
+   script (``--mesh-rank R --mesh-job JOB.json``) sharing the card (gloo,
+   the halo frames through host buffers; the kernels built before they
+   start), the interior bit-identical to one process, every kernel
+   launched on each rank, row 1's launches a step on each rank, the
+   processes' wall; and the same ranks at C12 npz=8 in float64 with
+   ``consv_te``, 1 step, within 1e-12 of each field's scale of the CPU's
+   one process. Section 2 also holds sim1's θ-blend (``a_imp = 0.75``) against
+   its plain version by sim1's gate, with its time.
 
 The last lines are the card's name and power limit (``nvidia-smi``), the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
@@ -746,13 +767,14 @@ def time_single_field(label, args):
 # on its C192 operands, check_path_kernels on the operands a driver step
 # gives each kernel.
 # ----------------------------------------------------------------------
-def check_halo(label, arrays, plan):
-    """The exchange kernel on lifted ``arrays`` against its plain version:
-    the same bytes in every output, or raise. Returns the max abs error."""
+def check_halo(label, arrays, plan, n_out=None):
+    """The exchange kernel on lifted ``arrays`` against its plain version
+    (over the first ``n_out`` shards): the same bytes in every output, or
+    raise. Returns the max abs error."""
     from pace_tpu_torch.parallel import halo_kernel as hk
 
-    got = hk.halo_cuda(arrays, plan)
-    ref = hk.halo_plain(arrays, plan)
+    got = hk.halo_cuda(arrays, plan, n_out)
+    ref = hk.halo_plain(arrays, plan, n_out)
     torch.cuda.synchronize()
     for name in ref:
         if not same_bits(got[name], ref[name]):
@@ -926,18 +948,18 @@ def check_updatedz_c(label, *args):
     return got, errs
 
 
-def sim1_plain(w, delz, pt, delp, pkz, ws, dt, ptop=0.0, p_fac=0.0):
+def sim1_plain(w, delz, pt, delp, pkz, ws, dt, ptop=0.0, p_fac=0.0, a_imp=1.0):
     """The plain vertical solve as the kernel computes it: the floor of
     ``p_fac`` applied where ``p_fac > 0``."""
     from pace_tpu_torch.ops import nonhydro as nh_ops
 
-    w_n, dz_n, pp_n = nh_ops.sim1_solver(w, delz, pt, delp, pkz, ws, dt, ptop)
+    w_n, dz_n, pp_n = nh_ops.sim1_solver(w, delz, pt, delp, pkz, ws, dt, ptop, a_imp=a_imp)
     if p_fac > 0.0:
         dz_n = nh_ops._p_fac_floor(dz_n, pt, delp, pkz, ptop, p_fac)
     return w_n, dz_n, pp_n
 
 
-def check_sim1_kernel(label, w, delz, pt, delp, pkz, ws, dt, ptop=0.0, p_fac=0.0):
+def check_sim1_kernel(label, w, delz, pt, delp, pkz, ws, dt, ptop=0.0, p_fac=0.0, a_imp=1.0):
     """The vertical solve on float32 operands within 4 ulp of each output's
     maximum, and on the same operands in float64 within SIM1_F64_REL_TOL,
     on the columns a consumer reads, or raise. Float32: the difference of
@@ -950,14 +972,14 @@ def check_sim1_kernel(label, w, delz, pt, delp, pkz, ws, dt, ptop=0.0, p_fac=0.0
     from pace_tpu_torch.ops import sim1_kernel as s1k
 
     args = (w, delz, pt, delp, pkz, ws)
-    got = s1k.sim1_solver_cuda(*args, dt, ptop, p_fac=p_fac)
-    ref = sim1_plain(*args, dt, ptop, p_fac)
+    got = s1k.sim1_solver_cuda(*args, dt, ptop, p_fac=p_fac, a_imp=a_imp)
+    ref = sim1_plain(*args, dt, ptop, p_fac, a_imp)
     torch.cuda.synchronize()
     errs = check_sim1(f"sim1 {label} f32", got, ref, dict.fromkeys(("w", "delz", "pp"),
                                                                   4 * eps(w)))
     args64 = [t.double() for t in args]
-    got64 = s1k.sim1_solver_cuda(*args64, dt, ptop, p_fac=p_fac)
-    f64 = sim1_plain(*args64, dt, ptop, p_fac)
+    got64 = s1k.sim1_solver_cuda(*args64, dt, ptop, p_fac=p_fac, a_imp=a_imp)
+    f64 = sim1_plain(*args64, dt, ptop, p_fac, a_imp)
     torch.cuda.synchronize()
     check_sim1(f"sim1 {label} f64", got64, f64, SIM1_F64_REL_TOL)
     for nm, a, b in zip(("w", "delz", "pp"), ref, f64):
@@ -1714,6 +1736,389 @@ def item3_phases(dev, counters, zero_counters, out_root, configs, tc_n=None, tc_
     log(f"[wall] section 8 (queue 1 item 3) took {time.perf_counter() - t_sec:.1f} s")
     return tc_launches
 
+#: [mesh 3 ranks]: baroclinic_c192.yaml's config cut to C48 on layout [2, 2]
+#: (24 shards, 8 a rank) for 2 steps, three processes on the one card; and
+#: its f64 check, C12 npz=8 with consv_te for 1 step (on the CPU a step of
+#: 56 substeps takes about 15 s), against the CPU's one process
+MESH_RANKS = 3
+MESH_N = 48
+MESH_LAYOUT = [2, 2]
+MESH_STEPS = 2
+MESH_F64_N, MESH_F64_NPZ, MESH_F64_STEPS = 12, 8, 1
+
+
+def kernel_counters():
+    """Every kernel's launch counter, by kernel name (the modules' LAUNCHES
+    dicts: clear them to zero a run's counts)."""
+    from pace_tpu_torch.ops import (c_sw_tail_kernel, d2a2c_kernel, d_sw_tail_kernel,
+                                    fvtp2d_kernel, hydro_kernel, pgrad_kernel, remap_kernel,
+                                    sim1_kernel, updatedz_kernel)
+    from pace_tpu_torch.parallel import halo_kernel
+
+    return {"halo": halo_kernel.LAUNCHES, "fvtp2d": fvtp2d_kernel.LAUNCHES,
+            "fvtp2d_tracer": fvtp2d_kernel.LAUNCHES, "d2a2c": d2a2c_kernel.LAUNCHES,
+            "c_sw_tail": c_sw_tail_kernel.LAUNCHES, "hydro": hydro_kernel.LAUNCHES,
+            "heights": updatedz_kernel.LAUNCHES, "updatedz_c": updatedz_kernel.LAUNCHES,
+            "sim1": sim1_kernel.LAUNCHES, "fvtp2d_multi": fvtp2d_kernel.LAUNCHES,
+            "d_sw_tail": d_sw_tail_kernel.LAUNCHES,
+            "flux_height_update": updatedz_kernel.LAUNCHES, "pgrad": pgrad_kernel.LAUNCHES,
+            "remap": remap_kernel.LAUNCHES}
+
+
+def zero_counters():
+    """Every count of :func:`kernel_counters` set to 0."""
+    for c in kernel_counters().values():
+        for k in c:
+            c[k] = 0
+
+
+def mesh_configs(configs, n, npz, build_dir):
+    """The raw configs of [mesh 3 ranks]: ``c48`` (f32, C48 by default) and
+    ``f64`` (C12 npz=8, consv_te), each with the mesh on; outputs under
+    ``build_dir``, no stage profile (three profilers on one card)."""
+    from pace_tpu_torch.demos import dycore_step as ddemo
+    from pace_tpu_torch.utils import yaml_subset
+
+    with open(os.path.join(configs, "baroclinic_c192.yaml")) as f:
+        base = yaml_subset.safe_load(f)
+    out = {}
+    for tag, nx, nz, prec, steps in (("c48", n, npz, 32, MESH_STEPS),
+                                     ("f64", MESH_F64_N, MESH_F64_NPZ, 64, MESH_F64_STEPS)):
+        raw = json.loads(json.dumps(base))
+        raw.update(nx_tile=nx, nz=nz, layout=list(MESH_LAYOUT), precision=prec, minutes=0,
+                   seconds=steps * base["dt_atmos"], mesh_config={"enabled": True})
+        raw["dycore_config"].update(ddemo.STABLE_DAMPING)
+        if tag == "f64":
+            raw["dycore_config"]["consv_te"] = 1.0
+        raw["diagnostics_config"].update(path=os.path.join(build_dir, tag, "output"),
+                                         output_format=DIAGNOSTICS_FORMAT,
+                                         output_frequency=1000)
+        raw["performance_config"].update(
+            experiment_name=os.path.join(build_dir, tag, "exp"), collect_stage_times=False)
+        out[tag] = raw
+    return out
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of [mesh 3 ranks] (``chip_smoke.py --mesh-rank R --mesh-job
+    JOB.json``): joins the process group of the file rendezvous in the job,
+    runs each of the job's configs through the Driver on the card, and
+    writes its launch counts and step times; rank 0 writes the gathered
+    state of each."""
+    rank = int(argv[argv.index("--mesh-rank") + 1])
+    with open(argv[argv.index("--mesh-job") + 1]) as f:
+        job = json.load(f)
+    sys.path.insert(0, HERE)
+    from pace_tpu_torch.driver.config import DriverConfig
+    from pace_tpu_torch.driver.driver import Driver
+    from pace_tpu_torch.parallel import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = job["device"]
+    M.initialize_distributed(device, init_method=job["rendezvous"], world_size=job["ranks"],
+                             rank=rank)
+    counters = kernel_counters()
+    report = {}
+    for tag, raw in job["configs"].items():
+        zero_counters()
+        t0 = time.perf_counter()
+        drv = Driver(DriverConfig.from_dict(raw), device=device)
+        drv.step_all()
+        drv.cleanup()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        whole = drv._whole(drv.state)
+        report[tag] = {"launches": {k: c[k] for k, c in counters.items()},
+                       "step_ms": [1e3 * t for t in drv.performance.step_seconds],
+                       "wall_s": wall, "backend": drv.mesh.backend,
+                       "host_staged": drv.mesh.host_staged, "k": drv.mesh.k,
+                       "steps": drv._step_count}
+        if rank == 0:
+            with open(os.path.join(job["out"], f"{tag}.npz"), "wb") as f:
+                np.savez(f, **{fl.name: getattr(whole, fl.name).cpu().numpy()
+                               for fl in dataclasses.fields(whole)
+                               if getattr(whole, fl.name) is not None})
+        del drv, whole
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def comm_mesh_phases(dev, counters, zero_counters, out_root, configs, c192, n=N, npz=NPZ,
+                     mesh_n=MESH_N, comm_npz=None):
+    """Section 9: what ROADMAP queue 1 items 7 and 8 added, through the
+    user's entry points: the three comm configs ([comm]), the C192 driver
+    config on a mesh of one NCCL rank ([mesh 1 rank]) and C48 on three
+    gloo ranks sharing the card ([mesh 3 ranks]). ``c192`` holds
+    [driver baroclinic_c192]'s final state (on the host), mainloop ms/step
+    and launches. Returns the row-1 launches a step on each mesh path."""
+    import torch.distributed as dist
+
+    from pace_tpu_torch.demos import dycore_step as ddemo
+    from pace_tpu_torch.driver.config import DriverConfig
+    from pace_tpu_torch.driver.driver import Driver
+    from pace_tpu_torch.utils import yaml_subset
+
+    t_sec = time.perf_counter()
+    build_dir = os.path.join(HERE, "build", "section9")
+    shutil.rmtree(build_dir, ignore_errors=True)
+    os.makedirs(build_dir)
+
+    def read_yaml(name):
+        with open(os.path.join(configs, name)) as f:
+            return yaml_subset.safe_load(f)
+
+    def fields_of(state):
+        return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+                if getattr(state, f.name) is not None}
+
+    # --- [comm]: the three comm configs as written (C12, npz=39,
+    #     hydrostatic, k_split=1, n_split=2, 4 steps), the recording kept
+    #     under build/ (it is about 100 MB)
+    def comm_raw(name, tag, path=None):
+        raw = read_yaml(name)
+        if comm_npz is not None:
+            raw["nz"] = comm_npz
+        raw["diagnostics_config"].update(path=os.path.join(out_root, "comm", tag, "output"),
+                                         output_format=DIAGNOSTICS_FORMAT)
+        raw.setdefault("performance_config", {})["experiment_name"] = os.path.join(
+            out_root, "comm", tag, "exp")
+        if path is not None:
+            raw["comm_config"]["path"] = path
+        return raw
+
+    rec_card = os.path.join(build_dir, "halo_recording.npz")
+    rec_cpu = os.path.join(build_dir, "halo_recording_cpu.npz")
+    comm = {}
+    for tag, name, d, path in (("write", "baroclinic_c12_comm_write.yaml", dev, rec_card),
+                               ("read", "baroclinic_c12_comm_read.yaml", dev, rec_card),
+                               ("write cpu", "baroclinic_c12_comm_write.yaml", "cpu", rec_cpu)):
+        zero_counters()
+        t0 = time.perf_counter()
+        drv = Driver(DriverConfig.from_dict(comm_raw(name, tag.replace(" ", "_"), path)),
+                     device=d)
+        drv.step_all()
+        drv.cleanup()
+        comm[tag] = dict(driver=drv, launches={k: c[k] for k, c in counters.items()},
+                         wall=time.perf_counter() - t0)
+    raw_null = comm_raw("baroclinic_c12_null_comm.yaml", "null")
+    zero_counters()
+    drv = Driver(DriverConfig.from_dict(raw_null), device=dev)
+    try:
+        drv.step_all()
+        null_stop = None
+    except RuntimeError as e:
+        null_stop = (drv._step_count, str(e))
+    drv.diagnostics.cleanup()
+    null_launch = {k: c[k] for k, c in counters.items()}
+    raw_null["safety_checks"] = []
+    raw_null["diagnostics_config"]["path"] += "_unchecked"
+    zero_counters()
+    drv = Driver(DriverConfig.from_dict(raw_null), device=dev)
+    drv.step_all()
+    drv.cleanup()
+    comm["null"] = dict(driver=drv, launches={k: c[k] for k, c in counters.items()})
+    with np.load(rec_card) as a, np.load(rec_cpu) as b:
+        ops_card, ops_cpu = [str(x) for x in a["ops"]], [str(x) for x in b["ops"]]
+    w, r = comm["write"]["driver"], comm["read"]["driver"]
+    differ = [nm for nm, t in fields_of(w.state).items()
+              if not same_bits(t, getattr(r.state, nm))]
+    cfg_w = w.config
+    log(f"[comm] baroclinic_c12_comm_write.yaml as written (C{cfg_w.nx_tile} npz={cfg_w.nz}, "
+        f"k_split={cfg_w.dycore_config.k_split}, n_split={cfg_w.dycore_config.n_split}, "
+        f"{w._step_count} steps): {len(ops_card)} exchange results recorded, halo launches "
+        f"{comm['write']['launches']['halo']}, {comm['write']['wall']:.1f} s; the port on the "
+        f"CPU records {len(ops_cpu)} with the same tags in the same order: {ops_card == ops_cpu}")
+    log(f"[comm] baroclinic_c12_comm_read.yaml replaying it: {r.halo._i} of {len(r.halo._ops)} "
+        f"results used, halo launches {comm['read']['launches']['halo']}, the final state "
+        f"bit-identical to the write run's: {not differ}"
+        f"{' (differ: ' + ', '.join(differ) + ')' if differ else ''}")
+    log(f"[comm] baroclinic_c12_null_comm.yaml as written: "
+        + (f"its safety checks stop it after step {null_stop[0]} ({null_stop[1][:90]}), as "
+           "pace_tpu's stop it" if null_stop else "ran to its end")
+        + f", halo launches {null_launch['halo']}; without the safety checks "
+        f"{comm['null']['driver']._step_count} steps, halo launches "
+        f"{comm['null']['launches']['halo']}")
+    bad = []
+    if ops_card != ops_cpu:
+        bad.append("the card's recording differs from the CPU's in its tags")
+    if differ or r.halo._i != len(r.halo._ops):
+        bad.append(f"the read run is not the write run: {differ}")
+    if comm["write"]["launches"]["halo"] <= 0 and dev.type == "cuda":
+        bad.append("the write run launched no halo kernel")
+    if comm["read"]["launches"]["halo"] or null_launch["halo"] or comm["null"]["launches"]["halo"]:
+        bad.append("a run with the exchange stood in for launched the halo kernel")
+    if null_stop is None or null_stop[0] != 1 or "NaN detected" not in null_stop[1]:
+        bad.append(f"the null config did not stop as pace_tpu's does: {null_stop}")
+    if comm["null"]["driver"]._step_count != cfg_w.n_timesteps:
+        bad.append("the null config without safety checks did not run its steps")
+    if bad:
+        raise AssertionError("[comm] checks failed: " + "; ".join(bad))
+    del comm, w, r, drv
+    os.remove(rec_cpu)
+
+    # --- [mesh 1 rank]: [driver baroclinic_c192]'s config with the mesh on,
+    #     one NCCL rank
+    raw = read_yaml("baroclinic_c192.yaml")
+    raw.update(nx_tile=n, nz=npz, minutes=DRIVER_C192_MINUTES, mesh_config={"enabled": True})
+    raw["dycore_config"].update(ddemo.STABLE_DAMPING)
+    m1_dir = os.path.join(out_root, "mesh_1_rank")
+    raw["diagnostics_config"].update(path=os.path.join(m1_dir, raw["diagnostics_config"]["path"]),
+                                     output_format=DIAGNOSTICS_FORMAT)
+    raw["performance_config"].update(
+        experiment_name=os.path.join(m1_dir, raw["performance_config"]["experiment_name"]),
+        collect_communication=True)
+    if not dist.is_nccl_available():
+        log("[mesh 1 rank] this card's PyTorch has no NCCL: the phase fails (no other backend "
+            "is taken)")
+        raise AssertionError("[mesh 1 rank] torch.distributed.is_nccl_available() is false")
+    zero_counters()
+    drv = Driver(DriverConfig.from_dict(raw), device=dev)
+    drv.step_all()
+    drv.cleanup()
+    m1_launches = {k: c[k] for k, c in counters.items()}
+    report = drv.performance.report(drv.config.dt_atmos)
+    m1_ms = 1e3 * report["mainloop_mean_seconds"]
+    differ = [nm for nm, t in fields_of(drv.state).items()
+              if nm not in c192["state"] or not same_bits(t.cpu(), c192["state"][nm])]
+    n_calls = drv._step_count + 1
+    log(f"[mesh 1 rank] baroclinic_c192.yaml's config (C{n} npz={npz} f32, STABLE_DAMPING, "
+        f"{drv._step_count} steps) with mesh_config.enabled: backend {drv.mesh.backend}, "
+        f"{drv.mesh.k} shards on rank 0 of {drv.mesh.world_size}; mainloop {m1_ms:.3f} ms/step "
+        f"(ms: {', '.join(f'{1e3 * t:.3f}' for t in drv.performance.step_seconds)}) against "
+        f"[driver baroclinic_c192]'s {c192['ms']:.3f} ms/step in this call")
+    log(f"[mesh 1 rank] state against [driver baroclinic_c192]'s: "
+        f"{len(fields_of(drv.state)) - len(differ)} of {len(fields_of(drv.state))} fields "
+        f"bit-identical{': differ ' + ', '.join(differ) if differ else ''}; launches in "
+        f"{n_calls} step calls {m1_launches}, equal to [driver baroclinic_c192]'s: "
+        f"{m1_launches == c192['launches']}; halo launches a step call "
+        f"{m1_launches['halo'] / n_calls:.1f}")
+    bad = []
+    if drv.mesh.backend != "nccl":
+        bad.append(f"backend {drv.mesh.backend}")
+    if differ:
+        bad.append(f"fields differ from the unmeshed run: {differ}")
+    if m1_launches != c192["launches"]:
+        bad.append("launches differ from the unmeshed run's")
+    if bad:
+        raise AssertionError("[mesh 1 rank] checks failed: " + "; ".join(bad))
+    shutil.rmtree(drv.config.diagnostics_config.path, ignore_errors=True)
+    del drv
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # --- [mesh 3 ranks]: three processes on the one card (gloo, the halo
+    #     frames through host buffers), the kernels built already; against
+    #     one process of the same config
+    mesh_raw = mesh_configs(configs, mesh_n, npz, build_dir)
+    single = json.loads(json.dumps(mesh_raw["c48"]))
+    single["mesh_config"] = {"enabled": False}
+    zero_counters()
+    t0 = time.perf_counter()
+    ref = Driver(DriverConfig.from_dict(single), device=dev)
+    ref.step_all()
+    ref.cleanup()
+    ref_wall = time.perf_counter() - t0
+    ref_launches = {k: c[k] for k, c in counters.items()}
+    ref_ms = [1e3 * t for t in ref.performance.step_seconds]
+    ref_state = {nm: t.cpu() for nm, t in fields_of(ref.state).items()}
+    del ref
+    torch.cuda.empty_cache()
+    job = {"rendezvous": f"file://{os.path.join(build_dir, 'rendezvous')}",
+           "ranks": MESH_RANKS, "out": build_dir, "configs": mesh_raw, "device": dev.type}
+    job_path = os.path.join(build_dir, "job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    env = dict(os.environ, WORLD_SIZE=str(MESH_RANKS), LOCAL_WORLD_SIZE=str(MESH_RANKS))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mesh-rank", str(r),
+         "--mesh-job", job_path], cwd=HERE, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall3 = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[mesh 3 ranks] rank {r} failed:\n{text[-6000:]}")
+    reports = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(build_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    with np.load(os.path.join(build_dir, "c48.npz")) as f:
+        got = {nm: torch.from_numpy(f[nm]) for nm in f.files}
+    differ = [nm for nm, t in ref_state.items()
+              if nm not in got or not same_bits(ring(got[nm], 3), ring(t, 3))]
+    c48 = [rep["c48"] for rep in reports]
+    steps3 = c48[0]["steps"]
+    m3_halo = [rep["launches"]["halo"] / steps3 for rep in c48]
+    missing = [k for rep in c48 for k, v in rep["launches"].items()
+               if v <= 0 and dev.type == "cuda"]
+    # each rank makes every exchange and runs every kernel on its block as
+    # one process does on the whole cube: the same launches
+    off = {r: {k: (v, ref_launches[k]) for k, v in rep["launches"].items()
+               if v != ref_launches[k]} for r, rep in enumerate(c48)}
+    off = {r: d for r, d in off.items() if d}
+    cfg48 = DriverConfig.from_dict(single)
+    log(f"[mesh 3 ranks] baroclinic_c192.yaml's config cut to C{cfg48.nx_tile} npz={cfg48.nz} "
+        f"f32 on layout {MESH_LAYOUT} ({6 * MESH_LAYOUT[0] * MESH_LAYOUT[1]} shards, "
+        f"{c48[0]['k']} a rank), {steps3} steps, {MESH_RANKS} processes on the one card "
+        f"(backend {c48[0]['backend']}, frames through host buffers: {c48[0]['host_staged']}): "
+        f"wall of the three processes {wall3:.1f} s (start-up, both configs and the "
+        f"gathers included), each rank's wall of the C{cfg48.nx_tile} run "
+        f"{', '.join('%.1f' % rep['wall_s'] for rep in c48)} s, step ms "
+        f"{[[round(t, 3) for t in rep['step_ms']] for rep in c48]}; one process: wall "
+        f"{ref_wall:.1f} s, step ms {[round(t, 3) for t in ref_ms]}")
+    log(f"[mesh 3 ranks] interior (3 rings in) against one process: "
+        f"{len(ref_state) - len(differ)} of {len(ref_state)} fields bit-identical"
+        f"{': differ ' + ', '.join(differ) if differ else ''}; halo launches a step on each "
+        f"rank {m3_halo} (one process: {ref_launches['halo'] / steps3:.1f}); launches of "
+        f"rank 0: {c48[0]['launches']}; every rank's equal to one process's: {not off}")
+    bad = []
+    if differ:
+        worst = {nm: float((ring(got[nm], 3).double() - ring(ref_state[nm], 3).double()).abs()
+                           .max()) for nm in differ if nm in got}
+        bad.append(f"fields differ from one process: {worst}")
+    if missing:
+        bad.append(f"kernels not launched on a rank: {sorted(set(missing))}")
+    if off:
+        bad.append(f"launches (rank: {{kernel: (rank's, one process's)}}) {off}")
+    # the f64 config with consv_te, against the CPU's one process
+    f64_single = json.loads(json.dumps(mesh_raw["f64"]))
+    f64_single["mesh_config"] = {"enabled": False}
+    cpu = Driver(DriverConfig.from_dict(f64_single), device="cpu")
+    start = cpu.state
+    cpu.step_all()
+    cpu.cleanup()
+    from pace_tpu_torch import constants
+
+    # w, delz and omga at the scale a difference of pressures near 1e5 Pa
+    # sets, as [driver f64] holds them
+    f64_scales = step_f64_scales(SimpleNamespace(state=start, grid=cpu.grid_data,
+                                                 core=cpu.dycore), constants)
+    with np.load(os.path.join(build_dir, "f64.npz")) as f:
+        card = SimpleNamespace(**{nm: (torch.from_numpy(f[nm]) if nm in f.files else None)
+                                  for nm in STEP_FIELDS})
+    hold_f64(f"{MESH_RANKS} ranks, baroclinic_c192.yaml's config with consv_te on layout "
+             f"{MESH_LAYOUT}, {MESH_F64_STEPS} step", card, cpu.state, f64_scales,
+             setup=f"C{MESH_F64_N} npz={MESH_F64_NPZ} f64")
+    if bad:
+        raise AssertionError("[mesh 3 ranks] checks failed: " + "; ".join(bad))
+    shutil.rmtree(build_dir, ignore_errors=True)
+    log(f"[wall] section 9 (comm configs and the mesh) took {time.perf_counter() - t_sec:.1f} s")
+    return {"mesh_1_rank": m1_launches, "mesh_1_rank_calls": n_calls,
+            "mesh_3_ranks_halo_per_step": m3_halo}
+
+
 def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     """The run described above; the arguments exist to rehearse the script
     at a small size, and the card is always required."""
@@ -2112,6 +2517,11 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     p_fac = ncase.config.p_fac
 
     s_got, s_err = check_sim1_kernel(f"C{n}", *s_args, dt2, cgrid.ptop, p_fac)
+    # the θ-blend's instantiation (a_imp != 1) on the same operands, by the
+    # same gate; its time beside the backward-Euler form's
+    check_sim1_kernel(f"C{n} a_imp=0.75", *s_args, dt2, cgrid.ptop, p_fac, a_imp=0.75)
+    blend_ms = time_ms(lambda: s1k.sim1_solver_cuda(*s_args, dt2, cgrid.ptop, p_fac=p_fac,
+                                                    a_imp=0.75), 20)
     # the tiling's limits, f32 and f64: K = 158 (each layer split into two
     # halves of its delp and delz) and K = 2 (the top two layers), on a 5 x 37
     # plane of the compute domain, whose 185 columns are no multiple of the
@@ -2146,7 +2556,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     results["sim1"] = dict(max_abs_err=s_err["pp"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
     log(f"[time] sim1 {tuple(s_args[0].shape)} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the kernel's time")
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of the kernel's time; "
+        f"the θ-blend form (a_imp=0.75) {blend_ms:.4f} ms")
     del s_got, s_args, u_args, z_args, nhalf, ncase, area
     del ccase, st, cgrid, chalo, cslabs
     torch.cuda.empty_cache()
@@ -2611,18 +3022,7 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # ------------------------------------------------------------------
     # 4. the slice through its entry point, launch counts around it
     # ------------------------------------------------------------------
-    counters = {"halo": hk.LAUNCHES, "fvtp2d": fk.LAUNCHES, "fvtp2d_tracer": fk.LAUNCHES,
-                "d2a2c": d2k.LAUNCHES, "c_sw_tail": ck.LAUNCHES, "hydro": hyk.LAUNCHES,
-                "heights": uzk.LAUNCHES, "updatedz_c": uzk.LAUNCHES, "sim1": s1k.LAUNCHES,
-                "fvtp2d_multi": fk.LAUNCHES, "d_sw_tail": dtk.LAUNCHES,
-                "flux_height_update": uzk.LAUNCHES, "pgrad": pgk.LAUNCHES,
-                "remap": rmk.LAUNCHES}
-
-    def zero_counters():
-        for c in counters.values():
-            for k in c:
-                c[k] = 0
-
+    counters = kernel_counters()
     zero_counters()
     torch.cuda.reset_peak_memory_stats(dev)
     out = demo.run(n=n, npz=npz, nq=nq, dt=DT, steps=steps, device=dev, dtype=torch.float32)
@@ -3322,6 +3722,11 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # the C192 record (about 280 MB) is not kept: the outputs under
     # chiprun_out/ stay small enough to copy back from the card's machine
     shutil.rmtree(cfg.diagnostics_config.path)
+    # what [mesh 1 rank] (section 9) is held to: the final state, on the host
+    c192 = {"state": {f.name: getattr(drv.state, f.name).cpu()
+                      for f in dataclasses.fields(drv.state)
+                      if getattr(drv.state, f.name) is not None},
+            "ms": 1e3 * report["mainloop_mean_seconds"], "launches": drv_launches}
     del drv, recs
     torch.cuda.empty_cache()
 
@@ -3430,6 +3835,14 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
     # ------------------------------------------------------------------
     tc_launches = item3_phases(dev, counters, zero_counters, out_root, configs)
 
+    # ------------------------------------------------------------------
+    # 9. what queue 1 items 7 and 8 added: the comm configs, and the mesh
+    #    on one NCCL rank and on three gloo ranks sharing the card
+    # ------------------------------------------------------------------
+    mesh_launches = comm_mesh_phases(dev, counters, zero_counters, out_root, configs, c192,
+                                     n=n, npz=npz)
+    del c192
+
     meta = {
         "halo": ("pace_tpu_torch/csrc/halo.cu", "pace_tpu/parallel/halo_pallas.py:71"),
         "fvtp2d": ("pace_tpu_torch/csrc/fvtp2d.cu", "pace_tpu/ops/fvtp2d_pallas.py:135"),
@@ -3460,7 +3873,8 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
                    "dycore_step_earthlike": el_launches[name],
                    "dycore_step_held_suarez": hs_launches[name],
                    "driver_baroclinic_c192": drv_launches[name],
-                   "driver_tropicalcyclone_c128": tc_launches[name]}
+                   "driver_tropicalcyclone_c128": tc_launches[name],
+                   "driver_baroclinic_c192_mesh_1_rank": mesh_launches["mesh_1_rank"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3478,4 +3892,4 @@ def main(device="cuda:0", n=N, npz=NPZ, nq=NQ, steps=STEPS) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_rank_main(sys.argv) if "--mesh-rank" in sys.argv else main())

@@ -1,17 +1,22 @@
-// Semi-implicit vertical solve (sim1), backward-Euler, one block per tile of
-// columns with the Thomas recurrence as the only serial part.
+// Semi-implicit vertical solve (sim1), one block per tile of columns with the
+// Thomas recurrence as the only serial part: backward Euler (a_imp = 1,
+// pace_sim1_*) or the θ-blend of any other implicitness weight θ = a_imp
+// (pace_sim1_blend_*), each its own instantiation of the kernel.
 //
 // Replaces pace_tpu/ops/sim1_pallas.py `_sim1_kernel` (pallas_call at :181,
 // entry sim1_solver_pallas :144). From the layer fields w, delz (< 0), pt,
 // delp, pkz (S, K, Y, X) and the surface velocity ws (S, Y, X) it computes,
-// in the operation order of ops/nonhydro.py sim1_solver (a_imp = 1) and
-// _p_fac_floor:
+// in the operation order of ops/nonhydro.py sim1_solver and _p_fac_floor:
 //   dm = delp / grav, t_v = pt pkz, p_full = dm rdgas t_v / (-delz)
 //   p_hyd = delp / (ln pe_below - ln pe_above), pe = ptop + running sum of
 //           delp, floored at 1e-10 under the log
 //   pprime = p_full - p_hyd,  B = -gamma p_full dt / delz  (> 0)
 //   the tridiagonal for the interface velocities W_0..W_{K-1} (W_K = ws folded
 //   into the last row), solved by the Thomas algorithm
+//   with θ != 1, the implicit coupling scaled by θ² and the explicit term
+//   θ(1-θ) r δ(B ΔW0) on the right-hand side (W0 the interface velocities of
+//   the input w, ΔW0 their difference across each layer), and the blended
+//   dW = θ dW + (1-θ) ΔW0 in the updates below
 //   delz_new = max(delz + dt dW, -dm rdgas t_v / (p_fac p_hyd))  (p_fac > 0)
 //   pprime_new = pprime + B dW
 //   pp[0] = 0, mass-weighted interior interfaces, pp[K] = 1.5 pprime_new[K-1]
@@ -42,6 +47,8 @@
 //   C1  delz_new with its floor, pprime_new
 //   C2  pp at the K + 1 interfaces, while w is fetched again
 //   C3  w_new
+// The θ-blend adds one pass after B: ΔW0 into s_dz (the diagonal is dead
+// there), from w, which B then leaves in s_w; delz is fetched after it.
 // The serial phase B runs on TC lanes while the rest of the block waits, so it
 // does the recurrence and nothing else. No pass waits on a load from device
 // memory. Eight arrays of
@@ -95,13 +102,16 @@ __device__ __forceinline__ void cp_async_join() {
 // 32), K levels. A thread keeps one column c = tid % TC in every pass and
 // takes the levels k = tid / TC, + kThreads / TC, ...: no division in the
 // passes' index arithmetic.
-template <typename T>
+// Blend: the θ-blend, with th2 = θ², th1 = θ(1-θ), theta = θ and omt = 1-θ
+// (each rounded from double, as the plain version's Python scalars are).
+template <typename T, bool Blend>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sim1_kernel(
     const T* __restrict__ w_in, const T* __restrict__ delz_in,
     const T* __restrict__ pt_in, const T* __restrict__ delp_in,
     const T* __restrict__ pkz_in, const T* __restrict__ ws_in, T dt, T ptop,
-    T p_fac, T grav, T rdgas, T gamma, T* __restrict__ w_out,
-    T* __restrict__ dz_out, T* __restrict__ pp_out, int K, int P, int TC) {
+    T p_fac, T grav, T rdgas, T gamma, T th2, T th1, T theta, T omt,
+    T* __restrict__ w_out, T* __restrict__ dz_out, T* __restrict__ pp_out,
+    int K, int P, int TC) {
   extern __shared__ unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int KT = K * TC;
@@ -211,8 +221,29 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sim1_kernel(
         w0 = (dm * s_w[e - TC] + dm_up * w) / (dm_up + dm);
       }
       T rhs = w0 + r * (pprime - pprime_up);
-      if (k == K - 1) rhs = rhs + (-(-r * b) * s_ws[c]);
-      s_dz[e] = T(1) + r * (b_up + b);
+      if (Blend) {
+        // W0 of the interface below (ws at the bottom) and above this row
+        T w0_dn = s_ws[c];
+        if (k + 1 < K) {
+          const T dm_dn = s_dm[e + TC];
+          w0_dn = (dm_dn * w + dm * s_w[e + TC]) / (dm + dm_dn);
+        }
+        T bdw0_up = T(0);
+        if (k > 0) {
+          T w0_up = s_w[e - TC];
+          if (k > 1) {
+            const T dm_up = s_dm[e - TC], dm_up2 = s_dm[e - 2 * TC];
+            w0_up = (dm_up * s_w[e - 2 * TC] + dm_up2 * s_w[e - TC]) / (dm_up2 + dm_up);
+          }
+          bdw0_up = b_up * (w0 - w0_up);
+        }
+        rhs = rhs + (th1 * r) * (b * (w0_dn - w0) - bdw0_up);
+        if (k == K - 1) rhs = rhs + (-((-th2 * r) * b) * s_ws[c]);
+        s_dz[e] = T(1) + (th2 * r) * (b_up + b);
+      } else {
+        if (k == K - 1) rhs = rhs + (-(-r * b) * s_ws[c]);
+        s_dz[e] = T(1) + r * (b_up + b);
+      }
       s_ln[e] = rhs;
     }
   }
@@ -235,8 +266,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sim1_kernel(
         bd_n = s_dz[e + TC];
         rhs_n = s_ln[e + TC];
       }
-      const T a_d = -r * b_up;
-      const T c_d = k == K - 1 ? T(0) : -r * b;
+      const T rc = Blend ? -th2 * r : -r;
+      const T a_d = rc * b_up;
+      const T c_d = k == K - 1 ? T(0) : rc * b;
       const T denom = b_d - a_d * cp;
       cp = c_d / denom;
       dv = (rhs - a_d * dv) / denom;
@@ -263,18 +295,45 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sim1_kernel(
       dv_k = dv_n;
       cp_k = cp_n;
     }
-  } else if (tid >= 32 && col) {
+  } else if (!Blend && tid >= 32 && col) {
     for (int k = (tid - 32) / TC; k < K; k += (kThreads - 32) / TC)
       cp_async(s_w + k * TC + c, delz_in + g0 + (long long)k * P);
   }
   cp_async_join();
+
+  // the θ-blend: ΔW0 of each layer into s_dz, then delz into s_w
+  if (Blend) {
+    if (col) {
+      for (int k = k0; k < K; k += dk) {
+        const int e = k * TC + c;
+        const T w = s_w[e], dm = s_dm[e];
+        T w0 = w, w0_dn = s_ws[c];
+        if (k > 0) {
+          const T dm_up = s_dm[e - TC];
+          w0 = (dm * s_w[e - TC] + dm_up * w) / (dm_up + dm);
+        }
+        if (k + 1 < K) {
+          const T dm_dn = s_dm[e + TC];
+          w0_dn = (dm_dn * w + dm * s_w[e + TC]) / (dm + dm_dn);
+        }
+        s_dz[e] = w0_dn - w0;
+      }
+    }
+    __syncthreads();
+    if (col) {
+      for (int k = k0; k < K; k += dk)
+        cp_async(s_w + k * TC + c, delz_in + g0 + (long long)k * P);
+    }
+    cp_async_join();
+  }
 
   // C1: the thicknesses with their floor, the new layer pprime
   if (col) {
     for (int k = k0; k < K; k += dk) {
       const int e = k * TC + c;
       const T x_dn = k < K - 1 ? s_ln[e + TC] : s_ws[c];
-      const T dwdz = x_dn - s_ln[e];
+      T dwdz = x_dn - s_ln[e];
+      if (Blend) dwdz = theta * dwdz + omt * s_dz[e];
       T dz_new = s_w[e] + dt * dwdz;
       if (p_fac > T(0)) dz_new = vmax<T>(dz_new, s_g[e]);
       dz_out[g0 + (long long)k * P] = dz_new;
@@ -333,15 +392,15 @@ int tile_columns(int K, int elem) {
   return tc * per_col > kSmemMax ? 0 : tc;
 }
 
-template <typename T>
+template <typename T, bool Blend>
 int launch(const void* w, const void* delz, const void* pt, const void* delp,
            const void* pkz, const void* ws, double dt, double ptop, double p_fac,
-           double grav, double rdgas, double gamma, void* w_out, void* dz_out,
-           void* pp, int S, int K, int P, void* stream) {
+           double grav, double rdgas, double gamma, double a_imp, void* w_out,
+           void* dz_out, void* pp, int S, int K, int P, void* stream) {
   const int TC = tile_columns(K, (int)sizeof(T));
   if (K < 2 || TC < 1) return -1;
   const size_t smem = sizeof(T) * ((size_t)kArrays * K + 1) * TC;
-  auto kern = sim1_kernel<T>;
+  auto kern = sim1_kernel<T, Blend>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -349,6 +408,7 @@ int launch(const void* w, const void* delz, const void* pt, const void* delp,
   kern<<<(unsigned)(S * tiles), kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)w, (const T*)delz, (const T*)pt, (const T*)delp, (const T*)pkz,
       (const T*)ws, (T)dt, (T)ptop, (T)p_fac, (T)grav, (T)rdgas, (T)gamma,
+      (T)(a_imp * a_imp), (T)(a_imp * (1.0 - a_imp)), (T)a_imp, (T)(1.0 - a_imp),
       (T*)w_out, (T*)dz_out, (T*)pp, K, P, TC);
   return (int)cudaGetLastError();
 }
@@ -361,8 +421,8 @@ extern "C" int pace_sim1_f32(const void* w, const void* delz, const void* pt,
                              double rdgas, double gamma, void* w_out,
                              void* dz_out, void* pp, int S, int K, int P,
                              void* stream) {
-  return launch<float>(w, delz, pt, delp, pkz, ws, dt, ptop, p_fac, grav, rdgas,
-                       gamma, w_out, dz_out, pp, S, K, P, stream);
+  return launch<float, false>(w, delz, pt, delp, pkz, ws, dt, ptop, p_fac, grav,
+                              rdgas, gamma, 1.0, w_out, dz_out, pp, S, K, P, stream);
 }
 
 extern "C" int pace_sim1_f64(const void* w, const void* delz, const void* pt,
@@ -371,6 +431,28 @@ extern "C" int pace_sim1_f64(const void* w, const void* delz, const void* pt,
                              double rdgas, double gamma, void* w_out,
                              void* dz_out, void* pp, int S, int K, int P,
                              void* stream) {
-  return launch<double>(w, delz, pt, delp, pkz, ws, dt, ptop, p_fac, grav, rdgas,
-                        gamma, w_out, dz_out, pp, S, K, P, stream);
+  return launch<double, false>(w, delz, pt, delp, pkz, ws, dt, ptop, p_fac, grav,
+                               rdgas, gamma, 1.0, w_out, dz_out, pp, S, K, P, stream);
+}
+
+// The θ-blend, a_imp = θ != 1: the arguments of pace_sim1_* with a_imp
+// before w_out.
+extern "C" int pace_sim1_blend_f32(const void* w, const void* delz, const void* pt,
+                                   const void* delp, const void* pkz, const void* ws,
+                                   double dt, double ptop, double p_fac, double grav,
+                                   double rdgas, double gamma, double a_imp,
+                                   void* w_out, void* dz_out, void* pp, int S, int K,
+                                   int P, void* stream) {
+  return launch<float, true>(w, delz, pt, delp, pkz, ws, dt, ptop, p_fac, grav, rdgas,
+                             gamma, a_imp, w_out, dz_out, pp, S, K, P, stream);
+}
+
+extern "C" int pace_sim1_blend_f64(const void* w, const void* delz, const void* pt,
+                                   const void* delp, const void* pkz, const void* ws,
+                                   double dt, double ptop, double p_fac, double grav,
+                                   double rdgas, double gamma, double a_imp,
+                                   void* w_out, void* dz_out, void* pp, int S, int K,
+                                   int P, void* stream) {
+  return launch<double, true>(w, delz, pt, delp, pkz, ws, dt, ptop, p_fac, grav, rdgas,
+                              gamma, a_imp, w_out, dz_out, pp, S, K, P, stream);
 }

@@ -68,8 +68,13 @@ class PhysicsEnableConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh (``pace_tpu`` shards its state over a JAX mesh). Not
-    ported: ``enabled: true`` raises (ROADMAP queue 1 item 7)."""
+    """The shard mesh: ``enabled`` splits the run over the ranks of
+    torch.distributed (``parallel/mesh.py``; ``torchrun --nproc-per-node N
+    python -m pace_tpu_torch.driver.run <yaml>``), each rank a contiguous
+    block of the ``6*ly*lx`` shards. ``n_devices``: the rank count the
+    config expects (default: the process group's); ``distributed`` is
+    accepted for ``pace_tpu``'s configs, the rendezvous coming from the
+    environment either way."""
 
     enabled: bool = False
     n_devices: Optional[int] = None
@@ -78,8 +83,11 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CommConfig:
-    """Halo-exchange backend. ``exchange`` (the real exchange) is ported;
-    ``null``, ``write`` and ``read`` raise (ROADMAP queue 1 item 7)."""
+    """Halo-exchange backend: ``exchange`` (the real exchange), ``null``
+    (every ghost set to ``fill_value``), ``write`` (the exchange, every
+    result recorded and saved to ``path`` at the end of the run) or
+    ``read`` (the recording at ``path`` replayed, no exchange);
+    ``parallel/strategies.py``."""
 
     type: str = "exchange"
     fill_value: float = 0.0

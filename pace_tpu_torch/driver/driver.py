@@ -18,14 +18,22 @@ compares its own stages with the recording through a
 stage, the variable and the hit; the replica runs the dycore alone, as
 ``pace_tpu``'s does. Both take each stage's variables to the host.
 
-Not ported, and refused with ``NotImplementedError`` rather than skipped:
-the device mesh (``mesh_config.enabled``) and the halo backends ``null``,
-``write`` and ``read`` (ROADMAP queue 1 item 7), and ``grid_indexing``
-(``dsl.py``, item 8).
+``comm_config`` picks the halo backend: the exchange, or a stand-in for it
+from ``parallel/strategies.py`` (``null`` fills the ghosts with a constant,
+``write`` records every exchange and saves the recording at the end of
+``step_all``, ``read`` replays one).
+
+``mesh_config.enabled`` splits the run over the ranks of torch.distributed
+(``parallel/mesh.py``; ``torchrun --nproc-per-node N python -m
+pace_tpu_torch.driver.run <yaml>``): each rank steps its block of the
+shards with the distributed exchange (``parallel/halo_shardmap.py``), and
+every rank runs every step and exchange; the diagnostics and restarts are
+gathered, and rank 0 writes them, the same files as a single-process run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -57,18 +65,11 @@ class Driver:
     def __init__(self, config: DriverConfig, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
-        if config.mesh_config.enabled:
-            raise NotImplementedError(
-                "mesh_config.enabled: the multi-device mesh is not ported yet "
-                "(ROADMAP queue 1 item 7)")
-        if config.comm_config.type in ("null", "write", "read"):
-            raise NotImplementedError(
-                f"comm_config.type {config.comm_config.type!r}: the halo backends null, write "
-                "and read are not ported yet (ROADMAP queue 1 item 7)")
-        if config.comm_config.type != "exchange":
+        if config.comm_config.type not in ("exchange", "null", "write", "read"):
             raise ValueError(f"unknown comm type {config.comm_config.type!r}")
         dtype = torch.float64 if config.precision == 64 else torch.float32
         self.dtype = dtype
+        self.mesh = self._build_mesh() if config.mesh_config.enabled else None
 
         logger.info("generating grid (C%d, nz=%d)", config.nx_tile, config.nz)
         self.metric_terms = config.grid_config.get_metric_terms(
@@ -77,11 +78,42 @@ class Driver:
         self.grid_data = GridData.from_metric_terms(self.metric_terms, device=self.device,
                                                     dtype=dtype)
         self.halo = self.metric_terms.halo
+        if self.mesh is not None:
+            from ..parallel.halo_shardmap import DistributedHalo
+            from ..parallel.mesh import shard_state
+
+            self.grid_data = shard_state(self.grid_data, self.mesh)
+            self.halo = DistributedHalo(self.metric_terms.halo.slabs, self.mesh)
+
+        # the halo backend: null, write and read stand in for the exchange
+        # (parallel/strategies.py); a recording run and its replay make no
+        # exchange outside the mainloop's steps, so they skip the stage
+        # profile's extra step
+        self._recorded_exchanges = False
+        comm = config.comm_config
+        if comm.type == "null":
+            from ..parallel.strategies import ConstantFillHalo
+
+            self.halo = ConstantFillHalo(self.halo, comm.fill_value)
+        elif comm.type == "write":
+            from ..parallel.strategies import RecordingHalo
+
+            self.halo = RecordingHalo(self.halo)
+            self._recorded_exchanges = True
+        elif comm.type == "read":
+            from ..parallel.strategies import ReplayHalo
+
+            self.halo = ReplayHalo(comm.path, self.metric_terms.halo)
+            self._recorded_exchanges = True
 
         logger.info("initializing state (%s)", config.initialization.type)
         self.state = config.initialization.get_dycore_state(
             self.metric_terms, self.device, dtype
         )
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_state
+
+            self.state = shard_state(self.state, self.mesh)
         checkpointer = None
         if config.debug_checks:
             from ..testing.sanitizer import make_sanitizer
@@ -120,12 +152,24 @@ class Driver:
             if (self.physics._surface is not None
                     and self.physics.surface_state is None):
                 self.physics.surface_state = self.physics._surface.init(
-                    self.state.ps.shape, self.state.ps.dtype, device=self.device
+                    self._whole_shape(self.state.ps), self.state.ps.dtype, device=self.device
                 )
 
-        self.diagnostics = config.diagnostics_config.diagnostics_factory(
-            self.metric_terms, self.metric_terms.spec.n_halo
-        )
+            if self.mesh is not None and self.physics.surface_state is not None:
+                from ..parallel.mesh import shard_state
+
+                self.physics.surface_state = shard_state(self.physics.surface_state,
+                                                         self.mesh)
+
+        # on a mesh, rank 0 writes what the ranks gather
+        if self._writes:
+            self.diagnostics = config.diagnostics_config.diagnostics_factory(
+                self.metric_terms, self.metric_terms.spec.n_halo
+            )
+        else:
+            from .diagnostics import NullDiagnostics
+
+            self.diagnostics = NullDiagnostics()
         self.diagnostics.store_grid(self.metric_terms)
 
         self.performance = config.performance_config.build()
@@ -199,10 +243,80 @@ class Driver:
             halo=self.halo,
         )
 
+    def _build_mesh(self):
+        """This rank's block of the shards, after ``pace_tpu``'s refusals: a
+        rank count that does not divide the shards, and ``pair_debug``."""
+        import torch.distributed as dist
+
+        from ..parallel import mesh as M
+
+        cfg = self.config
+        ly, lx = cfg.layout
+        n_shards = 6 * ly * lx
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+        n_dev = cfg.mesh_config.n_devices or world
+        if n_shards % n_dev:
+            raise ValueError(
+                f"mesh_config: {n_dev} devices do not divide the {n_shards} shards of layout "
+                f"{tuple(cfg.layout)}; choose a layout with 6*ly*lx divisible by the device "
+                "count")
+        if cfg.pair_debug:
+            raise ValueError("pair_debug runs per-stage checkpointers and is a single-device "
+                             "debugging tool; disable mesh_config.enabled")
+        if cfg.comm_config.type in ("write", "read"):
+            raise ValueError(f"comm_config.type {cfg.comm_config.type!r} records or replays one "
+                             "process's exchanges; disable mesh_config.enabled")
+        _backend, staged, self.device = M.initialize_distributed(self.device)
+        if dist.get_world_size() != n_dev:
+            raise ValueError(f"mesh_config.n_devices is {n_dev}, and the process group has "
+                             f"{dist.get_world_size()} ranks")
+        mesh = M.cube_mesh(n_shards, device=self.device, host_staged=staged)
+        logger.info("device mesh: %d ranks, %d shards (%d per rank)", n_dev, n_shards, mesh.k)
+        return mesh
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the run's files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _whole(self, obj, names=None):
+        """``obj`` (the state, the physics extras) gathered whole to rank 0
+        from the ranks' shards (only its fields ``names``, where given), None
+        on the other ranks; ``obj`` itself without a mesh."""
+        if self.mesh is None or obj is None:
+            return obj
+        from ..parallel.mesh import gather_state
+
+        return gather_state(obj, self.mesh, names)
+
+    def _diagnostic_names(self):
+        """The fields of the state and the physics extras the diagnostics
+        read."""
+        dc = self.config.diagnostics_config
+        names = set(dc.names)
+        if dc.derived_names:
+            names |= {"q", "delp"}
+        for zs in dc.z_select:
+            names |= set(zs.names)
+        return names
+
+    def _whole_shape(self, t):
+        return tuple(t.shape) if self.mesh is None else (self.mesh.n_shards,) + tuple(t.shape[1:])
+
+    def _mesh_ctx(self):
+        """The mesh active for the reductions while the model steps."""
+        from ..parallel.mesh import shard_mesh
+
+        return shard_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()
+
     def grid_indexing(self, shard: int = 0):
-        raise NotImplementedError(
-            "grid_indexing: the stencil facade (dsl.py GridIndexing) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+        """The compute-domain geometry of ``shard`` in the model's own
+        decomposition (``dsl.GridIndexing``), the window a ``FrozenStencil``
+        indexes the driver's padded state arrays by."""
+        from ..dsl import GridIndexing
+
+        return GridIndexing.from_halo(self.metric_terms.halo, shard, self.config.nz)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -210,6 +324,10 @@ class Driver:
 
     # ------------------------------------------------------------------
     def step_all(self):
+        with self._mesh_ctx():
+            self._step_all()
+
+    def _step_all(self):
         n = self.config.n_timesteps
         perf = self.config.performance_config
         logger.info("running %d steps of dt=%s s", n, self.config.dt_atmos)
@@ -218,7 +336,7 @@ class Driver:
             profiler.enable()
         trace = self._start_trace() if perf.profile_dir else None
         if self.config.diagnostics_config.output_initial_state:
-            self.diagnostics.store(self.time_seconds, self.state, self._physics_extras())
+            self._store_diagnostics()
         for _ in range(n):
             t0 = time.perf_counter()
             if self._pair_cmp is not None:
@@ -250,9 +368,13 @@ class Driver:
             self._collect_stage_times()
         if profiler is not None:
             profiler.disable()
-            prof_path = f"{perf.experiment_name}.prof"
-            profiler.dump_stats(prof_path)
-            logger.info("cProfile written to %s", prof_path)
+            if self._writes:
+                prof_path = f"{perf.experiment_name}.prof"
+                profiler.dump_stats(prof_path)
+                logger.info("cProfile written to %s", prof_path)
+        if self.config.comm_config.type == "write":
+            self.halo.save(self.config.comm_config.path)
+            logger.info("halo recording written to %s", self.config.comm_config.path)
 
     def _start_trace(self):
         """A running torch.profiler over the mainloop, written for
@@ -273,7 +395,7 @@ class Driver:
         see stage_profile.py), on a copy of the state; the physics stages
         from one physics call."""
         perf = self.config.performance_config
-        if not perf.collect_stage_times:
+        if not perf.collect_stage_times or self._recorded_exchanges:
             return
         from .stage_profile import STAGES, profile_stage_times
 
@@ -300,13 +422,34 @@ class Driver:
                 raise RuntimeError(
                     f"pair_debug: replica divergence in {name!r} at step {self._step_count}")
 
+    def _store_diagnostics(self):
+        names = self._diagnostic_names()
+        if not names:
+            return
+        self.diagnostics.store(self.time_seconds, self._whole(self.state, names),
+                               self._whole(self._physics_extras(), names))
+
+    def _save_restart(self, path):
+        """The restart files of the whole state (gathered on a mesh), written
+        by rank 0."""
+        state = self._whole(self.state)
+        surface = None
+        if self.physics is not None and self.physics.surface_state is not None:
+            surface = self._whole(self.physics.surface_state)
+        if not self._writes:
+            return
+        save_restart(path, state, self.time_seconds)
+        if surface is not None:
+            save_surface_restart(path, surface)
+        self.config.write_for_restart(path, self.time_seconds)
+
     def _end_of_step_actions(self):
         cfg = self.config
         if self._step_count % cfg.diagnostics_config.output_frequency == 0:
-            self.diagnostics.store(self.time_seconds, self.state, self._physics_extras())
+            self._store_diagnostics()
             # an ongoing summary at every output step: a crash later on
             # still leaves the timings on disk
-            if cfg.performance_config.collect_performance:
+            if cfg.performance_config.collect_performance and self._writes:
                 self.performance.write_json(
                     f"{cfg.performance_config.experiment_name}_perf.json",
                     cfg.dt_atmos,
@@ -316,10 +459,7 @@ class Driver:
             cfg.restart_config.save_intermediate_restart
             and self._step_count in cfg.restart_config.intermediate_restart
         ):
-            path = os.path.join(cfg.restart_config.path, f"step_{self._step_count}")
-            save_restart(path, self.state, self.time_seconds)
-            self._save_surface(path)
-            cfg.write_for_restart(path, self.time_seconds)
+            self._save_restart(os.path.join(cfg.restart_config.path, f"step_{self._step_count}"))
 
     def _physics_extras(self):
         """Physics and surface fields for the diagnostics' ``names``
@@ -335,10 +475,6 @@ class Driver:
             extras.update(phys._surface.diagnostics(sfc))
         return extras
 
-    def _save_surface(self, path):
-        if self.physics is not None and self.physics.surface_state is not None:
-            save_surface_restart(path, self.physics.surface_state)
-
     def _maybe_load_surface(self):
         """Restore the interactive surface's state on a restart (a coupled
         run resumes bit for bit)."""
@@ -350,19 +486,16 @@ class Driver:
         path = (init.config or {}).get("path", "RESTART")
         if not has_surface_restart(path):
             return
-        template = self.physics._surface.init(self.state.ps.shape, self.state.ps.dtype,
-                                              device=self.device)
+        template = self.physics._surface.init(self._whole_shape(self.state.ps),
+                                              self.state.ps.dtype, device=self.device)
         self.physics.surface_state = load_surface_restart(path, template)
 
     def cleanup(self):
         cfg = self.config
         if cfg.restart_config.save_restart:
-            os.makedirs(cfg.restart_config.path, exist_ok=True)
-            save_restart(cfg.restart_config.path, self.state, self.time_seconds)
-            self._save_surface(cfg.restart_config.path)
-            cfg.write_for_restart(cfg.restart_config.path, self.time_seconds)
+            self._save_restart(cfg.restart_config.path)
         self.diagnostics.cleanup()
-        if cfg.performance_config.collect_performance:
+        if cfg.performance_config.collect_performance and self._writes:
             report = self.performance.report(cfg.dt_atmos)
             logger.info(
                 "mainloop mean %.3f s/step, SYPD=%s",

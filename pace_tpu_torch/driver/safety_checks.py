@@ -2,7 +2,8 @@
 
 Port of ``pace_tpu.driver.safety_checks`` (reference role: ``SafetyChecker``).
 Each check's NaN test, minimum and maximum are computed on the device, and
-only those scalars, for all checks at once, move to the host.
+only those scalars, for all checks at once, move to the host; on a mesh
+they are reduced over the ranks first, so that every rank raises alike.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import List
 
 import torch
+
+from ..parallel.mesh import all_reduce, get_shard_mesh
 
 
 class SafetyChecker:
@@ -39,8 +42,14 @@ class SafetyChecker:
         if not rows:
             return
         # one transfer of three scalars a check; numpy scalars print as
-        # pace_tpu's messages print them
-        values = torch.stack([s.to(stats[0].dtype) for s in stats]).cpu().numpy()
+        # pace_tpu's messages print them. On a mesh: the NaN flags, minima
+        # and maxima of every rank's shards, one all-reduce (max of the
+        # negated minima)
+        values = torch.stack([s.to(stats[0].dtype) for s in stats])
+        if get_shard_mesh() is not None:
+            sign = torch.tensor([1.0, -1.0, 1.0], dtype=values.dtype, device=values.device)
+            values = all_reduce(values * sign, "max") * sign
+        values = values.cpu().numpy()
         failures = []
         for (name, lo, hi), (nan, amin, amax) in zip(rows, values):
             if nan:

@@ -25,6 +25,7 @@ from ..models.shield.microphysics import (
     fast_saturation_adjustment,
     saturation_mixing_ratio,
 )
+from ..parallel.mesh import all_reduce, get_shard_mesh
 from .delnflux import _grad_fluxes
 from .stencil_utils import (
     bcast_k,
@@ -236,13 +237,16 @@ def global_energy_fix_increment(te1, te2, cvm, delp, area, n_halo: int, consv: f
         dT = consv * sum((te1 - te2) area) / sum(sum_k(cvm delp) area)
 
     Both sums run over every shard's compute domain (each cell of the cube
-    once); on one device that is a sum over the stacked shards. Returns a
-    0-dim tensor on the operands' device (no host sync), to be applied as
+    once); on one device that is a sum over the stacked shards, on a mesh
+    each rank's sums added over the ranks (one all-reduce of both). Returns
+    a 0-dim tensor on the operands' device (no host sync), to be applied as
     ``pt += dT / pkz``."""
     sl = (..., slice(n_halo, -n_halo), slice(n_halo, -n_halo))
     w_area = area[sl]
     dte = torch.sum((te1 - te2)[sl] * w_area)
     denom = torch.sum(torch.sum(cvm * delp, dim=-3)[sl] * w_area)
+    if get_shard_mesh() is not None:
+        dte, denom = all_reduce(torch.stack([dte, denom]), "sum")
     return consv * dte / denom
 
 

@@ -13,6 +13,8 @@ is ``ops.nonhydro.nh_p_grad``, whose kernel (``ops/pgrad_kernel.py``) repeats
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .. import constants
@@ -180,12 +182,48 @@ def p_grad_c(uc, vc, pkc, gz, grid, dt2: float):
     return uc + du, vc + dv
 
 
+_A2B_FACTORY = None
+#: (weak reference to a grid, that grid's a2b FrozenStencil)
+_A2B_STENCIL = None
+
+
+def _a2b_factory():
+    """The module's ``StencilFactory``, built once (a driver's factory lives
+    as long as the driver)."""
+    global _A2B_FACTORY
+    if _A2B_FACTORY is None:
+        from ..dsl import StencilFactory
+
+        _A2B_FACTORY = StencilFactory()
+    return _A2B_FACTORY
+
+
+def _a2b_stencil(grid):
+    """``a2b_ord4`` on ``grid`` as one ``FrozenStencil`` from the factory,
+    built at the first call with that grid (a driver steps one grid). Its
+    window is the whole padded plane: this op computes ghost values that the
+    next exchange overwrites."""
+    global _A2B_STENCIL
+    if _A2B_STENCIL is None or _A2B_STENCIL[0]() is not grid:
+        ref = weakref.ref(grid)
+        _A2B_STENCIL = (ref, _a2b_factory().from_origin_domain(
+            lambda out, q: a2b_ord4(q, ref()), origin=(0, 0), domain=(-1, -1)))
+    return _A2B_STENCIL[1]
+
+
 def one_grad_p(u, v, pk, gz, grid, dt: float):
     """Hydrostatic D-grid pressure-gradient update: ``pk`` and ``gz``
     ``(.., K+1, Y, X)`` interpolated to corners by :func:`a2b_ord4`, then the
-    contour PGF along each D-grid edge. Returns ``(u + du, v + dv)``."""
-    pk_b = a2b_ord4(pk, grid)  # (.., K+1, Y+1, X+1)
-    gz_b = a2b_ord4(gz, grid)
+    contour PGF along each D-grid edge. Returns ``(u + du, v + dv)``.
+
+    The two corner interpolations run through one ``dsl.FrozenStencil``, as
+    ``pace_tpu``'s do. Over a whole-plane window its result is
+    :func:`a2b_ord4`'s, with no copy: the output argument only gives the
+    shape, a one-element tensor expanded to it."""
+    a2b = _a2b_stencil(grid)
+    out = pk.new_empty(()).expand(pk.shape[:-2] + (pk.shape[-2] + 1, pk.shape[-1] + 1))
+    pk_b = a2b(out, pk)  # (.., K+1, Y+1, X+1)
+    gz_b = a2b(out, gz)
     du = _pgf_pair(
         gz_b[..., :, :-1], gz_b[..., :, 1:], pk_b[..., :, :-1], pk_b[..., :, 1:],
         dt, bcast_k(grid.rdx, u),

@@ -1,10 +1,11 @@
 """The semi-implicit vertical solve's CUDA kernel wrapper.
 
 Kernel source: ``csrc/sim1.cu`` (replaces ``pace_tpu/ops/sim1_pallas.py``
-``_sim1_kernel``). :func:`sim1_solver_cuda` is the backward-Euler
-(``a_imp == 1``) solve of ``ops.nonhydro.sim1_solver`` with the ``p_fac``
-floor of ``ops.nonhydro._p_fac_floor`` applied inside; it counts its launches
-in :data:`LAUNCHES`. ``ops.nonhydro.sim1_solver_best`` picks it or the plain
+``_sim1_kernel``). :func:`sim1_solver_cuda` is the solve of
+``ops.nonhydro.sim1_solver`` with the ``p_fac`` floor of
+``ops.nonhydro._p_fac_floor`` applied inside: backward Euler for ``a_imp ==
+1``, the θ-blend (its own instantiation of the kernel, ``pace_sim1_blend_*``)
+for any other ``a_imp``; it counts its launches in :data:`LAUNCHES`. ``ops.nonhydro.sim1_solver_best`` picks it or the plain
 version by where its operands lie (ops/_dispatch.py).
 
 A block of the kernel owns :func:`tile_columns` columns and all K levels;
@@ -30,6 +31,7 @@ from ._dispatch import check_operands
 LAUNCHES = {"sim1": 0}
 
 _FN = {torch.float32: "pace_sim1_f32", torch.float64: "pace_sim1_f64"}
+_FN_BLEND = {torch.float32: "pace_sim1_blend_f32", torch.float64: "pace_sim1_blend_f64"}
 
 
 #: arrays of K values a column that a block keeps in shared memory (and one
@@ -58,20 +60,21 @@ def tile_columns(K: int, dtype) -> int:
     return tc
 
 
-def _fn(dtype):
-    fn = getattr(_build.library("sim1"), _FN[dtype])
+def _fn(dtype, blend=False):
+    fn = getattr(_build.library("sim1"), (_FN_BLEND if blend else _FN)[dtype])
     if fn.argtypes is None:
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [P, P, P, P, P, P, D, D, D, D, D, D, P, P, P, I, I, I, P]
+        fn.argtypes = [P] * 6 + [D] * (7 if blend else 6) + [P, P, P, I, I, I, P]
         fn.restype = I
     return fn
 
 
 def sim1_solver_cuda(w, delz, pt, delp, pkz, ws, dt: float, ptop: float = 0.0,
-                     p_fac: float = 0.0):
+                     p_fac: float = 0.0, a_imp: float = 1.0):
     """Column-kernel ``(w_new, delz_new (S, K, Y, X), pp (S, K+1, Y, X))`` of
     CUDA layer fields ``w, delz, pt, delp, pkz (S, K, Y, X)`` and the surface
-    velocity ``ws (S, Y, X)``; ``p_fac <= 0`` skips the pressure floor."""
+    velocity ``ws (S, Y, X)``; ``p_fac <= 0`` skips the pressure floor, and
+    ``a_imp != 1`` takes the θ-blend."""
     if w.ndim != 4:
         raise ValueError(f"sim1 kernel takes (S, K, Y, X) fields, got {tuple(w.shape)}")
     S, K, Y, X = w.shape
@@ -88,10 +91,12 @@ def sim1_solver_cuda(w, delz, pt, delp, pkz, ws, dt: float, ptop: float = 0.0,
     w_new = torch.empty_like(w)
     delz_new = torch.empty_like(w)
     pp = torch.empty((S, K + 1, Y, X), dtype=w.dtype, device=w.device)
-    rc = _fn(w.dtype)(
+    blend = float(a_imp) != 1.0
+    rc = _fn(w.dtype, blend)(
         w.data_ptr(), delz.data_ptr(), pt.data_ptr(), delp.data_ptr(), pkz.data_ptr(),
         ws.data_ptr(), float(dt), float(ptop), float(p_fac), constants.GRAV, constants.RDGAS,
-        1.0 / (1.0 - constants.KAPPA), w_new.data_ptr(), delz_new.data_ptr(), pp.data_ptr(),
+        1.0 / (1.0 - constants.KAPPA), *((float(a_imp),) if blend else ()),
+        w_new.data_ptr(), delz_new.data_ptr(), pp.data_ptr(),
         S, K, Y * X, _build.stream_handle(w.device),
     )
     _build.check(rc, "sim1 kernel")

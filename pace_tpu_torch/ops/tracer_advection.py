@@ -22,6 +22,7 @@ import torch
 
 from .folds import CornerPatch
 from .fvtp2d_kernel import fvtp2d_tracer
+from ..parallel.mesh import all_reduce
 from .stencil_utils import bcast_k, x_iface_diff, y_iface_diff
 
 #: bound on the runtime-derived sub-cycle count (dynamic=True); a count
@@ -34,14 +35,18 @@ def subcycle_count(crx, cry, n_halo: int, n_split: int = 1) -> int:
     """floor(max|c|) + 1 over the compute domain, at least ``n_split``,
     clipped to [1, MAX_DYNAMIC_SUBCYCLES]. The max is taken over interior
     faces only: the corner ghost zones of the halo-padded courant tensors
-    are never read by a stencil and may hold junk.
+    are never read by a stencil and may hold junk. On a mesh it is the max
+    over every rank's shards (an all-reduce), so that all ranks take the
+    same count. A NaN or infinite maximum gives ``n_split`` (clipped), as
+    ``pace_tpu``'s saturating conversion to an integer does.
 
     One ``.item()``: a host sync that waits for every queued kernel."""
     sl = slice(n_halo, -n_halo) if n_halo else slice(None)
-    c_max = torch.maximum(
+    c_max = all_reduce(torch.maximum(
         crx[..., sl, sl].abs().max(), cry[..., sl, sl].abs().max()
-    ).item()
-    return int(min(max(math.floor(c_max) + 1, n_split, 1), MAX_DYNAMIC_SUBCYCLES))
+    ), "max").item()
+    floor = math.floor(c_max) if math.isfinite(c_max) else 0
+    return int(min(max(floor + 1, n_split, 1), MAX_DYNAMIC_SUBCYCLES))
 
 
 def advect_tracers(

@@ -1,5 +1,6 @@
 """Cube topology, shard layout and halo exchange on stacked shard tensors."""
 
+from .gather import gather_tiles, scatter_tiles
 from .halo import HaloExchanger
 from .partitioner import CubedSpherePartitioner, TilePartitioner
 from .topology import (
@@ -25,6 +26,8 @@ __all__ = [
     "TilePartitioner",
     "CubedSpherePartitioner",
     "HaloExchanger",
+    "gather_tiles",
+    "scatter_tiles",
     "EDGE_W",
     "EDGE_E",
     "EDGE_S",

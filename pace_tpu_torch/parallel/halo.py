@@ -405,6 +405,16 @@ class HaloExchanger:
         """(q with x-fold corners, q with y-fold corners)."""
         return self.slabs.update_scalar_folds(q, stagger=stagger)
 
+    def update_scalars_folds(self, qs, stagger: str = "center"):
+        """[(qi with x-fold corners, qi with y-fold corners)] for several
+        same-shaped fields."""
+        return self.slabs.update_scalars_folds(qs, stagger=stagger)
+
+    def start_update_scalars_folds(self, qs, stagger: str = "center"):
+        """Start the both-folds exchange of several fields; ``.wait()`` on
+        the returned handle gives ``[(qi_x, qi_y)]``."""
+        return self.slabs.start_update_scalars_folds(qs, stagger=stagger)
+
     def update_vector_folds(self, u, v, kind: str = "dgrid"):
         """((u_x, v_x), (u_y, v_y))."""
         return self.slabs.update_vector_folds(u, v, kind=kind)

@@ -15,7 +15,10 @@ flattened into one level axis K (a 3-D field has K = 1).
   ``_assemble_dus``).
 - :func:`exchange` picks one by where the inputs lie (ops/_dispatch.py).
 
-Both return new tensors; the inputs are never written.
+Both return new tensors; the inputs are never written. An exchange writes
+``n_out`` shards (all of the inputs' by default): the distributed exchange
+(``halo_shardmap.py``) gives a rank's own shards followed by the shards it
+received, and a plan whose shard indices are re-based onto that source.
 """
 
 from __future__ import annotations
@@ -54,10 +57,11 @@ def _lift(a: torch.Tensor) -> torch.Tensor:
     return a.reshape((a.shape[0], -1) + tuple(a.shape[-2:]))
 
 
-def exchange(inputs: Dict[str, torch.Tensor], plan: ExchangePlan) -> Dict[str, torch.Tensor]:
+def exchange(inputs: Dict[str, torch.Tensor], plan: ExchangePlan,
+             n_out=None) -> Dict[str, torch.Tensor]:
     """Run one exchange; returns ``{output name: tensor}``, each shaped like
     its source input (region-only outputs follow the first input's leading
-    axes)."""
+    axes), over the first ``n_out`` shards."""
     names = sorted(inputs)
     first = inputs[names[0]]
     for n in names[1:]:
@@ -68,10 +72,10 @@ def exchange(inputs: Dict[str, torch.Tensor], plan: ExchangePlan) -> Dict[str, t
             raise ValueError(f"halo inputs disagree on dtype: {a.dtype} vs {first.dtype}")
     arrays = {n: _lift(inputs[n]) for n in names}
     if route(*arrays.values()) == "kernel":
-        outs = halo_cuda(arrays, plan)
+        outs = halo_cuda(arrays, plan, n_out)
     else:
-        outs = halo_plain(arrays, plan)
-    lead = tuple(first.shape[:-2])
+        outs = halo_plain(arrays, plan, n_out)
+    lead = (first.shape[0] if n_out is None else n_out,) + tuple(first.shape[1:-2])
     return {name: out.reshape(lead + tuple(out.shape[-2:])) for name, out in outs.items()}
 
 
@@ -101,15 +105,17 @@ def _compute_slab(op, srcs: Dict[str, torch.Tensor]) -> torch.Tensor:
     return slab
 
 
-def halo_plain(arrays: Dict[str, torch.Tensor], plan: ExchangePlan) -> Dict[str, torch.Tensor]:
+def halo_plain(arrays: Dict[str, torch.Tensor], plan: ExchangePlan,
+               n_out=None) -> Dict[str, torch.Tensor]:
     """Plain PyTorch exchange on lifted ``(S, K, Y, X)`` inputs."""
     ref = arrays[sorted(arrays)[0]]
+    S = ref.shape[0] if n_out is None else n_out
     outs = {}
     for name, src, shape in plan.outputs:
         if src is not None:
-            out = arrays[src].clone()
+            out = arrays[src][:S].clone()
         else:
-            out = torch.empty(tuple(ref.shape[:2]) + tuple(shape), dtype=ref.dtype, device=ref.device)
+            out = torch.empty((S, ref.shape[1]) + tuple(shape), dtype=ref.dtype, device=ref.device)
         for oname, op in plan.ops:
             if oname == name:
                 r0, r1, c0, c1 = op.dst_rect
@@ -182,8 +188,10 @@ def _fn(dtype):
     return fn
 
 
-def halo_cuda(arrays: Dict[str, torch.Tensor], plan: ExchangePlan) -> Dict[str, torch.Tensor]:
-    """Kernel exchange on lifted ``(S, K, Y, X)`` CUDA inputs (at most two)."""
+def halo_cuda(arrays: Dict[str, torch.Tensor], plan: ExchangePlan,
+              n_out=None) -> Dict[str, torch.Tensor]:
+    """Kernel exchange on lifted ``(S, K, Y, X)`` CUDA inputs (at most two),
+    writing the first ``n_out`` shards."""
     names = sorted(arrays)
     if len(names) > 2:
         raise ValueError(f"halo kernel takes at most two inputs, got {names}")
@@ -196,7 +204,8 @@ def halo_cuda(arrays: Dict[str, torch.Tensor], plan: ExchangePlan) -> Dict[str, 
             raise ValueError(f"halo kernel: input {n} must lie on {ref.device}")
         if not a.is_contiguous():
             raise ValueError(f"halo kernel: input {n} must be contiguous")
-    S, K = ref.shape[:2]
+    K = ref.shape[1]
+    S = ref.shape[0] if n_out is None else n_out
     planes = {n: tuple(arrays[n].shape[-2:]) for n in names}
     in0 = arrays[names[0]]
     in1 = arrays[names[-1]]

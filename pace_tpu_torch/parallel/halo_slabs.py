@@ -356,10 +356,21 @@ class SlabHalo:
         return self._plan(("sync", kind), build)
 
     # ------------------------------------------------------------------
-    # application
+    # application: every method runs its plan through ``_exchange`` (the
+    # start forms through ``_start``), which a mesh's exchanger
+    # (``halo_shardmap.DistributedHalo``) overrides
     # ------------------------------------------------------------------
+    def _start(self, inputs, plan: ExchangePlan):
+        """Issue the exchange of ``inputs`` by ``plan``; returns the function
+        that completes it and gives its outputs. With every shard in this
+        process nothing is in flight: the exchange runs in that function."""
+        return lambda: exchange(inputs, plan)
+
+    def _exchange(self, inputs, plan: ExchangePlan):
+        return exchange(inputs, plan)
+
     def update_scalar(self, q, stagger: str = "center", fold: str = "x"):
-        return exchange({"q": q}, self.scalar_plan(stagger, fold))["q"]
+        return self._exchange({"q": q}, self.scalar_plan(stagger, fold))["q"]
 
     def update_scalars(self, qs, stagger: str = "center", fold: str = "x"):
         """Several same-shaped scalar fields, one exchange per field (no
@@ -367,14 +378,25 @@ class SlabHalo:
         return [self.update_scalar(q, stagger=stagger, fold=fold) for q in qs]
 
     def update_vector(self, u, v, kind: str = "dgrid", fold: str = "x"):
-        out = exchange({"u": u, "v": v}, self.vector_plan(kind, fold))
+        out = self._exchange({"u": u, "v": v}, self.vector_plan(kind, fold))
         return out["u"], out["v"]
 
     # the x and y folds differ only in the four corner ghost regions
     def update_scalar_folds(self, q, stagger: str = "center"):
         """(q_xfold, q_yfold) from one exchange that reads ``q`` once."""
-        out = exchange({"q": q}, self.scalar_folds_plan(stagger))
+        out = self._exchange({"q": q}, self.scalar_folds_plan(stagger))
         return out["qx"], out["qy"]
+
+    def update_scalars_folds(self, qs, stagger: str = "center"):
+        """[(qi_xfold, qi_yfold)] for several same-shaped fields."""
+        return [self.update_scalar_folds(q, stagger=stagger) for q in qs]
+
+    def start_update_scalars_folds(self, qs, stagger: str = "center"):
+        """Two-call form of :meth:`update_scalars_folds` (see
+        :meth:`start_update_scalars_fold_patches`)."""
+        plan = self.scalar_folds_plan(stagger)
+        done = [self._start({"q": q}, plan) for q in qs]
+        return HaloUpdateHandle(lambda: [(o["qx"], o["qy"]) for o in (f() for f in done)])
 
     def update_vector_folds(self, u, v, kind: str = "dgrid"):
         """((u_x, v_x), (u_y, v_y)): one exchange per fold."""
@@ -390,14 +412,14 @@ class SlabHalo:
         consumer reads. The D-grid u is y-swept and v x-swept, and c_sw's
         A-grid consumers read va_x/ua_y only, so the other two fold results
         are never written."""
-        out = exchange({"u": u, "v": v}, self.vector_pair_plan(kind, fold_u, fold_v))
+        out = self._exchange({"u": u, "v": v}, self.vector_pair_plan(kind, fold_u, fold_v))
         return out["uf"], out["vf"]
 
     def update_scalar_fold_patch(self, q, stagger: str = "center"):
         """(q_xfold, y_corner_patch). The patch is the y-fold's four corner
         ghost regions packed [[SW, SE], [NW, NE]] into (…, 2h, 2h);
         apply_corner_patch(q_xfold, patch) == update_scalar(q, fold="y")."""
-        out = exchange({"q": q}, self.fold_patch_plan(stagger))
+        out = self._exchange({"q": q}, self.fold_patch_plan(stagger))
         return out["qx"], out["qp"]
 
     def update_scalars_fold_patches(self, qs, stagger: str = "center"):
@@ -406,17 +428,17 @@ class SlabHalo:
 
     def start_update_scalars_fold_patches(self, qs, stagger: str = "center"):
         """Two-call form of :meth:`update_scalars_fold_patches`: returns a
-        handle whose ``wait()`` gives the pairs. With the six tiles on one
-        device nothing is in flight between the calls; the handle defers the
-        exchange to ``wait()``."""
-        qs = list(qs)
-        return HaloUpdateHandle(
-            lambda: self.update_scalars_fold_patches(qs, stagger=stagger)
-        )
+        handle whose ``wait()`` gives the pairs. With the six tiles in one
+        process nothing is in flight between the calls; the handle defers
+        the exchanges to ``wait()``. On a mesh every field's sends and
+        receives are issued here."""
+        plan = self.fold_patch_plan(stagger)
+        done = [self._start({"q": q}, plan) for q in qs]
+        return HaloUpdateHandle(lambda: [(o["qx"], o["qp"]) for o in (f() for f in done)])
 
     def sync_vector_interfaces(self, u, v, kind: str = "dgrid"):
         """Tile-edge interface values of (u, v) set to the edge owner's."""
-        out = exchange({"u": u, "v": v}, self.sync_plan(kind))
+        out = self._exchange({"u": u, "v": v}, self.sync_plan(kind))
         return out["u"], out["v"]
 
     def _patch_ops(self, stagger: str, fold: str):

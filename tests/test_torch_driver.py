@@ -19,9 +19,12 @@ attributes. Then the restarts cross: ``pace_tpu``'s final restart, loaded by
 the port's ``Driver`` through ``pace_tpu``'s ``restart.yaml`` and run one
 step, agrees with ``pace_tpu``'s run going on for that step, and the port's,
 loaded by ``pace_tpu``'s ``Driver`` through the port's ``restart.yaml``, with
-the port's. Then the driver's refusals: no card without ``device="cpu"``, and
-the parts that are not ported (the mesh and the halo backends of ROADMAP queue
-1 item 7, with the three comm configs) raise ``NotImplementedError``. Last,
+the port's. Then the driver's refusal of no card without ``device="cpu"``;
+what it refused until ROADMAP queue 1 items 7 and 8 were ported: the mesh
+and the halo backends build, the three comm configs run as written (the
+read config replaying the write config's recording bit for bit), and
+``grid_indexing`` gives ``pace_tpu``'s geometry; an unknown comm type still
+raises ``ValueError``. Last,
 what queue 1 item 3 added: ``pair_debug`` (the replica equal to the model at
 every stage of a step of ``baroclinic_c12.yaml``) and ``debug_checks``
 build, and ``external_c12.yaml`` and
@@ -293,10 +296,34 @@ def test_driver_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     ({"comm_config": {"type": "write"}}, "item 7"),
     ({"comm_config": {"type": "read"}}, "item 7"),
 ])
-def test_unported_parts_raise(override, item):
-    cfg = DriverConfig.from_dict({"nx_tile": 12, "nz": 4, **override})
-    with pytest.raises(NotImplementedError, match=item):
-        Driver(cfg, device="cpu")
+def test_unported_parts_raise(override, item, tmp_path):
+    """What the driver refused until ROADMAP queue 1 ``item`` was ported now
+    builds: the mesh (one rank here, on a process group of one), and the
+    halo backends null, write and read (a recording to replay written
+    first)."""
+    from pace_tpu_torch.parallel import halo_shardmap, strategies
+
+    raw = {"nx_tile": 12, "nz": 4, "minutes": 0, **copy.deepcopy(override)}
+    kind = raw.get("comm_config", {}).get("type")
+    if kind in ("write", "read"):
+        raw["comm_config"]["path"] = str(tmp_path / "rec.npz")
+    if kind == "read":
+        rec = Driver(DriverConfig.from_dict({**raw, "comm_config": {
+            "type": "write", "path": str(tmp_path / "rec.npz")}}), device="cpu").halo
+        rec.save(str(tmp_path / "rec.npz"))
+    d = Driver(DriverConfig.from_dict(raw), device="cpu")
+    want = {None: halo_shardmap.DistributedHalo, "null": strategies.ConstantFillHalo,
+            "write": strategies.RecordingHalo, "read": strategies.ReplayHalo}[kind]
+    assert isinstance(d.halo, want)
+    if kind is None:
+        assert d.mesh.world_size == 1 and d.mesh.k == 6 and d.halo.n_shards == 6
+
+
+def test_unknown_comm_type_raises():
+    with pytest.raises(ValueError, match="unknown comm type 'carrier pigeon'"):
+        Driver(DriverConfig.from_dict({"nx_tile": 12, "nz": 4,
+                                       "comm_config": {"type": "carrier pigeon"}}),
+               device="cpu")
 
 
 @pytest.fixture
@@ -310,12 +337,57 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module")
+def comm_write(tmp_path_factory):
+    """``baroclinic_c12_comm_write.yaml`` run as written at nz=4, in a
+    directory of its own, where it leaves ``halo_recording.npz``."""
+    tmp = tmp_path_factory.mktemp("comm_write")
+    here, n = os.getcwd(), torch.get_num_threads()
+    os.chdir(tmp)
+    torch.set_num_threads(1)
+    try:
+        write = Driver(DriverConfig.from_dict(with_paths(
+            yaml_config("baroclinic_c12_comm_write.yaml", nz=4), tmp / "w")), device="cpu")
+        write.step_all()
+        write.cleanup()
+    finally:
+        os.chdir(here)
+        torch.set_num_threads(n)
+    return tmp, write
+
+
 @pytest.mark.parametrize("name", ["baroclinic_c12_null_comm.yaml", "baroclinic_c12_comm_read.yaml",
                                   "baroclinic_c12_comm_write.yaml"])
-def test_comm_configs_raise_naming_item_7(name):
-    raw = yaml_config(name, nz=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        Driver(DriverConfig.from_dict(raw), device="cpu")
+def test_comm_configs_raise_naming_item_7(name, comm_write, tmp_path, monkeypatch, one_thread):
+    """The three comm configs, refused until ROADMAP queue 1 item 7 was
+    ported, run as written (4 steps) at nz=4: the write run saves its
+    recording, and the read run replays it to the write run's state, bit
+    for bit. The null run's zero ghosts put NaN in the state, and its safety
+    checks stop it after the first step, as pace_tpu's stop it (ROADMAP
+    queue 3); without them it runs its 4 steps."""
+    write_dir, write = comm_write
+    monkeypatch.chdir(write_dir)
+    assert write._step_count == 4 and os.path.exists("halo_recording.npz")
+    if name == "baroclinic_c12_comm_write.yaml":
+        with np.load("halo_recording.npz") as f:
+            assert len(f["ops"]) == len(write.halo._ops) == len(f.files) - 1
+        return
+    raw = with_paths(yaml_config(name, nz=4), tmp_path / "r")
+    d = Driver(DriverConfig.from_dict(raw), device="cpu")
+    if name == "baroclinic_c12_null_comm.yaml":
+        with pytest.raises(RuntimeError, match="safety check failed: u: NaN detected"):
+            d.step_all()
+        assert d._step_count == 1
+        d.diagnostics.cleanup()
+        raw = with_paths({**raw, "safety_checks": []}, tmp_path / "r2")
+        d = Driver(DriverConfig.from_dict(raw), device="cpu")
+    d.step_all()
+    d.cleanup()
+    assert d._step_count == 4
+    if name == "baroclinic_c12_comm_read.yaml":
+        assert d.halo._i == len(d.halo._ops)
+        for f in ("u", "v", "delp", "pt", "q", "ps"):
+            assert torch.equal(getattr(d.state, f), getattr(write.state, f)), f
 
 
 @pytest.mark.parametrize("override", [
@@ -407,6 +479,17 @@ def test_read_restart_fortran_config_runs(tmp_path, one_thread):
 
 
 def test_grid_indexing_raises():
-    d = Driver(DriverConfig.from_dict({"nx_tile": 12, "nz": 4, "minutes": 0}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        d.grid_indexing()
+    """Refused until ROADMAP queue 1 item 8 was ported: now each shard's
+    compute-domain geometry, pace_tpu's for the same config."""
+    from pace_tpu import dsl as jdsl
+    from pace_tpu_torch.dsl import GridIndexing
+
+    d = Driver(DriverConfig.from_dict({"nx_tile": 12, "nz": 4, "minutes": 0,
+                                       "layout": [2, 2]}), device="cpu")
+    jd = JDriver(JDriverConfig.from_dict({"nx_tile": 12, "nz": 4, "minutes": 0,
+                                          "layout": [2, 2]}))
+    for shard in (0, 3, 23):
+        gi = d.grid_indexing(shard)
+        assert isinstance(gi, GridIndexing) and gi.domain == (4, 6, 6)
+        assert gi == GridIndexing(**vars(jd.grid_indexing(shard)))
+        assert isinstance(jd.grid_indexing(shard), jdsl.GridIndexing)

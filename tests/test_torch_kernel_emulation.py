@@ -80,6 +80,9 @@ def libs(tmp_path_factory):
     for f in ("pace_sim1_f32", "pace_sim1_f64"):
         fn = getattr(libs["sim1"], f)
         fn.argtypes, fn.restype = [P_] * 6 + [D] * 6 + [P_] * 3 + [I] * 3 + [P_], I
+    for f in ("pace_sim1_blend_f32", "pace_sim1_blend_f64"):
+        fn = getattr(libs["sim1"], f)
+        fn.argtypes, fn.restype = [P_] * 6 + [D] * 7 + [P_] * 3 + [I] * 3 + [P_], I
     for f in ("pace_fvtp2d_multi_f32", "pace_fvtp2d_multi_f64"):
         fn = getattr(libs["fvtp2d"], f)
         fn.argtypes, fn.restype = [P_, P_, I, I] + [P_] * 7 + [I] * 4 + [P_], I
@@ -135,14 +138,15 @@ def _columns(S, K, Y, X, dtype, seed):
     return [torch.from_numpy(a).to(dtype).contiguous() for a in arrays]
 
 
-def _sim1(lib, cols, dt, ptop, p_fac):
+def _sim1(lib, cols, dt, ptop, p_fac, a_imp=1.0):
     S, K, Y, X = cols[0].shape
     w_new, dz_new = torch.empty_like(cols[0]), torch.empty_like(cols[0])
     pp = torch.empty((S, K + 1, Y, X), dtype=cols[0].dtype)
-    rc = getattr(lib, "pace_sim1_" + _suffix(cols[0].dtype))(
+    blend = (a_imp,) if a_imp != 1.0 else ()
+    rc = getattr(lib, ("pace_sim1_blend_" if blend else "pace_sim1_") + _suffix(cols[0].dtype))(
         *[t.data_ptr() for t in cols], dt, ptop, p_fac, constants.GRAV, constants.RDGAS,
-        1.0 / (1.0 - constants.KAPPA), w_new.data_ptr(), dz_new.data_ptr(), pp.data_ptr(),
-        S, K, Y * X, None)
+        1.0 / (1.0 - constants.KAPPA), *blend, w_new.data_ptr(), dz_new.data_ptr(),
+        pp.data_ptr(), S, K, Y * X, None)
     assert rc == 0
     return w_new, dz_new, pp
 
@@ -154,10 +158,26 @@ def _sim1(lib, cols, dt, ptop, p_fac):
 ], ids=["K2-f64", "K2-f32", "K7-f64", "K200-f64", "K79-f64"])
 @pytest.mark.parametrize("p_fac", [0.0, 2.0], ids=["no-floor", "floor-binds"])
 def test_sim1_kernel_source_matches_the_plain_version(libs, shape, dtype, p_fac):
+    _hold_sim1(libs, shape, dtype, p_fac, 1.0)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 2, 5, 37), torch.float64), ((2, 2, 5, 37), torch.float32),
+    ((2, 7, 6, 9), torch.float64), ((2, 7, 6, 9), torch.float32),
+    ((1, 79, 3, 11), torch.float64),
+], ids=["K2-f64", "K2-f32", "K7-f64", "K7-f32", "K79-f64"])
+@pytest.mark.parametrize("p_fac", [0.0, 2.0], ids=["no-floor", "floor-binds"])
+def test_sim1_blend_kernel_source_matches_the_plain_version(libs, shape, dtype, p_fac):
+    """The θ-blend instantiation (``pace_sim1_blend_*``) against
+    ``sim1_solver(..., a_imp=0.75)``."""
+    _hold_sim1(libs, shape, dtype, p_fac, 0.75)
+
+
+def _hold_sim1(libs, shape, dtype, p_fac, a_imp):
     cols = _columns(*shape, dtype, seed=shape[1])
     dt, ptop = 4.0, 300.0
-    got = _sim1(libs["sim1"], cols, dt, ptop, p_fac)
-    w_n, dz_n, pp_n = nonhydro.sim1_solver(*cols, dt, ptop)
+    got = _sim1(libs["sim1"], cols, dt, ptop, p_fac, a_imp)
+    w_n, dz_n, pp_n = nonhydro.sim1_solver(*cols, dt, ptop, a_imp=a_imp)
     if p_fac > 0:
         dz_n = nonhydro._p_fac_floor(dz_n, *cols[2:5], ptop, p_fac)
     ulp = torch.finfo(dtype).eps

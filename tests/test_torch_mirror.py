@@ -118,5 +118,14 @@ def test_port_imports_no_jax_and_no_pace_tpu():
         "pace_tpu_torch.testing.savepoint_cli",
         "pace_tpu_torch.testing.translate",
         "pace_tpu_torch.testing.validation",
+        "pace_tpu_torch.parallel.strategies",
+        "pace_tpu_torch.parallel.mesh",
+        "pace_tpu_torch.parallel.halo_shardmap",
+        "pace_tpu_torch.parallel.gather",
+        "pace_tpu_torch.dsl",
+        "pace_tpu_torch.tools",
+        "pace_tpu_torch.tools.zarr_to_nc",
+        "pace_tpu_torch.tools.plot_output",
+        "pace_tpu_torch.tools.profile_step",
     }
     assert expected <= set(result["modules"])

@@ -164,16 +164,16 @@ def test_sim1_solver_best_skips_floor_without_p_fac():
 
 @pytest.mark.parametrize("a_imp", [0.75, 0.5])
 def test_sim1_solver_best_kernel_route_refuses_blend(monkeypatch, a_imp):
-    """On the kernel route (CUDA tensors) the θ-blend must raise before any
-    launch rather than run the plain version: the kernel solves ``a_imp ==
-    1`` only."""
+    """On the kernel route (CUDA tensors) the θ-blend goes to the kernel
+    with its ``a_imp`` and never to the plain version: the blend has its
+    own instantiation of the kernel (the kernel refused it until then)."""
     launched = []
     monkeypatch.setattr(tnh, "route", lambda *ts: "kernel")
-    monkeypatch.setattr(tnh, "sim1_solver_cuda", lambda *a, **k: launched.append(1))
-    monkeypatch.setattr(tnh, "sim1_solver", lambda *a, **k: launched.append(2))
-    with pytest.raises(NotImplementedError, match="a_imp == 1"):
-        tnh.sim1_solver_best(*_t(_columns(seed=6)), 4.0, 300.0, a_imp=a_imp)
-    assert not launched
+    monkeypatch.setattr(tnh, "sim1_solver_cuda", lambda *a, **k: launched.append(k) or "k")
+    monkeypatch.setattr(tnh, "sim1_solver", lambda *a, **k: launched.append("plain"))
+    assert tnh.sim1_solver_best(*_t(_columns(seed=6)), 4.0, 300.0, a_imp=a_imp,
+                                p_fac=0.05) == "k"
+    assert launched == [{"p_fac": 0.05, "a_imp": a_imp}]
 
 
 @pytest.mark.parametrize("solver", ["riem_solver_c", "riem_solver3"])
