@@ -1,0 +1,1 @@
+"""Part of the frozen plain-path copy (see ``fv3ref/__init__.py``)."""
