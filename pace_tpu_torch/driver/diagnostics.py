@@ -22,6 +22,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.ranges import host_sync
+
 
 @dataclasses.dataclass(frozen=True)
 class ZSelect:
@@ -213,7 +215,8 @@ class MonitorDiagnostics:
         self.store_backend.flush()
 
     def _append(self, name: str, it: int, t: torch.Tensor):
-        arr = t.detach().to(torch.float32).cpu().numpy()
+        with host_sync("diagnostics"):
+            arr = t.detach().to(torch.float32).cpu().numpy()
         self.store_backend.append_time(name, it, arr)
 
     def store_grid(self, mt):

@@ -45,9 +45,9 @@ from ..dtypes import resolve_device
 from ..grid.grid_data import GridData
 from ..models.fv3.dycore import DynamicalCore
 from ..utils.logging import get_logger
+from ..utils.ranges import host_sync
 from .config import DriverConfig
 from .fortran_restart import coupler_elapsed_seconds, is_fortran_restart
-from .performance import Timer
 from .restart import (
     has_surface_restart, load_surface_restart, restart_time, save_restart,
     save_surface_restart,
@@ -173,7 +173,9 @@ class Driver:
         self.diagnostics.store_grid(self.metric_terms)
 
         self.performance = config.performance_config.build()
-        self.timer = Timer()
+        #: the clocks of the run (``mainloop``, ``Physics``, ``Diagnostics``,
+        #: ``SafetyChecks``, ``Restart``), the ones the perf report writes
+        self.timer = self.performance.timer
 
         self.safety_checker = SafetyChecker()
         for chk in config.safety_checks:
@@ -319,8 +321,9 @@ class Driver:
         return GridIndexing.from_halo(self.metric_terms.halo, shard, self.config.nz)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with host_sync("step_end"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def step_all(self):
@@ -336,7 +339,8 @@ class Driver:
             profiler.enable()
         trace = self._start_trace() if perf.profile_dir else None
         if self.config.diagnostics_config.output_initial_state:
-            self._store_diagnostics()
+            with self.timer.clock("Diagnostics"):
+                self._store_diagnostics()
         for _ in range(n):
             t0 = time.perf_counter()
             if self._pair_cmp is not None:
@@ -345,7 +349,8 @@ class Driver:
             with self.timer.clock("mainloop"):
                 self.state = self.dycore.step_dynamics(self.state)
                 if self.physics is not None:
-                    self.state = self.physics(self.state, self.time_seconds)
+                    with self.timer.clock("Physics"):
+                        self.state = self.physics(self.state, self.time_seconds)
             # wait for the device so that each step's time is honest
             self._sync()
             if self.dycore_pair is not None:
@@ -446,20 +451,24 @@ class Driver:
     def _end_of_step_actions(self):
         cfg = self.config
         if self._step_count % cfg.diagnostics_config.output_frequency == 0:
-            self._store_diagnostics()
-            # an ongoing summary at every output step: a crash later on
-            # still leaves the timings on disk
-            if cfg.performance_config.collect_performance and self._writes:
-                self.performance.write_json(
-                    f"{cfg.performance_config.experiment_name}_perf.json",
-                    cfg.dt_atmos,
-                )
-        self.safety_checker.check_state(self.state, n_halo=self.metric_terms.spec.n_halo)
+            with self.timer.clock("Diagnostics"):
+                self._store_diagnostics()
+                # an ongoing summary at every output step: a crash later on
+                # still leaves the timings on disk
+                if cfg.performance_config.collect_performance and self._writes:
+                    self.performance.write_json(
+                        f"{cfg.performance_config.experiment_name}_perf.json",
+                        cfg.dt_atmos,
+                    )
+        with self.timer.clock("SafetyChecks"):
+            self.safety_checker.check_state(self.state, n_halo=self.metric_terms.spec.n_halo)
         if (
             cfg.restart_config.save_intermediate_restart
             and self._step_count in cfg.restart_config.intermediate_restart
         ):
-            self._save_restart(os.path.join(cfg.restart_config.path, f"step_{self._step_count}"))
+            with self.timer.clock("Restart"):
+                self._save_restart(os.path.join(cfg.restart_config.path,
+                                                f"step_{self._step_count}"))
 
     def _physics_extras(self):
         """Physics and surface fields for the diagnostics' ``names``
@@ -493,7 +502,8 @@ class Driver:
     def cleanup(self):
         cfg = self.config
         if cfg.restart_config.save_restart:
-            self._save_restart(cfg.restart_config.path)
+            with self.timer.clock("Restart"):
+                self._save_restart(cfg.restart_config.path)
         self.diagnostics.cleanup()
         if cfg.performance_config.collect_performance and self._writes:
             report = self.performance.report(cfg.dt_atmos)

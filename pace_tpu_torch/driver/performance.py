@@ -12,9 +12,32 @@ import json
 import time
 from typing import Dict, List
 
+from ..utils.ranges import stage_range
+
+
+class _Clock:
+    """One run of a named clock, inside the stage range of the same name."""
+
+    __slots__ = ("timer", "name", "_range")
+
+    def __init__(self, timer: "Timer", name: str):
+        self.timer = timer
+        self.name = name
+
+    def __enter__(self):
+        self._range = stage_range(self.name)
+        self._range.__enter__()
+        self.timer.start(self.name)
+
+    def __exit__(self, *exc):
+        self.timer.stop(self.name)
+        return self._range.__exit__(*exc)
+
 
 class Timer:
-    """Named wall clocks with hit counts. ``with timer.clock("mainloop"): ...``"""
+    """Named wall clocks with hit counts. ``with timer.clock("mainloop"): ...``
+    also opens the stage range ``"mainloop"``, so that a clock shows in a
+    device trace."""
 
     def __init__(self):
         self.times: Dict[str, float] = {}
@@ -29,17 +52,8 @@ class Timer:
         self.times[name] = self.times.get(name, 0.0) + dt
         self.hits[name] = self.hits.get(name, 0) + 1
 
-    def clock(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                timer.start(name)
-
-            def __exit__(self, *a):
-                timer.stop(name)
-
-        return _Ctx()
+    def clock(self, name: str) -> _Clock:
+        return _Clock(self, name)
 
 
 class NullTimer(Timer):

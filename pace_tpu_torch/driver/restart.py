@@ -20,6 +20,7 @@ import os
 
 from ..dtypes import to_tensor
 from ..models.fv3.state import DycoreState
+from ..utils.ranges import host_sync
 
 _FIELDS = (
     "u",
@@ -53,7 +54,9 @@ def save_restart(path: str, state: DycoreState, time_seconds: float = 0.0):
         for name in _FIELDS:
             val = getattr(state, name)
             if val is not None:
-                f.create_dataset(name, data=val.detach().cpu().numpy(), dtype="f8")
+                with host_sync("restart"):
+                    data = val.detach().cpu().numpy()
+                f.create_dataset(name, data=data, dtype="f8")
 
 
 def load_restart(path: str, device, dtype) -> DycoreState:
@@ -124,7 +127,9 @@ def save_surface_restart(path: str, surface_state) -> None:
     filesystem.get_fs(path).makedirs(path, exist_ok=True)
     with h5py.File(os.path.join(path, _SURFACE_FILE), "w") as f:
         for name, leaf in surface_leaves(surface_state):
-            f.create_dataset(name, data=leaf.detach().cpu().numpy(), dtype="f8")
+            with host_sync("restart"):
+                data = leaf.detach().cpu().numpy()
+            f.create_dataset(name, data=data, dtype="f8")
 
 
 def has_surface_restart(path: str) -> bool:

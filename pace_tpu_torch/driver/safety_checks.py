@@ -13,6 +13,7 @@ from typing import List
 import torch
 
 from ..parallel.mesh import all_reduce, get_shard_mesh
+from ..utils.ranges import host_sync
 
 
 class SafetyChecker:
@@ -49,7 +50,8 @@ class SafetyChecker:
         if get_shard_mesh() is not None:
             sign = torch.tensor([1.0, -1.0, 1.0], dtype=values.dtype, device=values.device)
             values = all_reduce(values * sign, "max") * sign
-        values = values.cpu().numpy()
+        with host_sync("safety_checks"):
+            values = values.cpu().numpy()
         failures = []
         for (name, lo, hi), (nan, amin, amax) in zip(rows, values):
             if nan:

@@ -45,6 +45,7 @@ from ...ops.nonhydro import (
     updatedz_d,
 )
 from ...ops.pgrad import one_grad_p, p_grad_c
+from ...ops.stencil_utils import scalar_like
 from ...utils.ranges import stage_range
 
 
@@ -289,8 +290,7 @@ def d_grid_half(half: CGridHalf, grid, halo, config: AcousticConfig, dt: float,
     with stage_range("UpdateDZ"):
         zh_adv = updatedz_d(half.zh_x, half.zh_y, ds.crx, ds.cry, ds.xfx, ds.yfx, grid, dt)
     zs = half.zh_x[..., -1:, :, :]
-    ws = (zh_adv[..., -1:, :, :] - zs)[..., 0, :, :] / torch.tensor(
-        dt, dtype=zs.dtype, device=zs.device)
+    ws = (zh_adv[..., -1:, :, :] - zs)[..., 0, :, :] / scalar_like(dt, zs)
     zh_adv = torch.cat([zh_adv[..., :-1, :, :], zs], dim=-3)
     delz = zh_adv[..., 1:, :, :] - zh_adv[..., :-1, :, :]
 

@@ -226,7 +226,14 @@ class DynamicalCore:
 
     def step_dynamics(self, state: DycoreState) -> DycoreState:
         """The state after one step of ``timestep`` seconds; the input state
-        is not written."""
+        is not written. The range ``FVDynamics`` (pyFV3's name for the whole
+        step) holds the work outside ``DynCore``, ``TracerAdvection`` and
+        ``Remapping``: the fv_dynamics tail and the fields derived at the step's
+        end."""
+        with stage_range("FVDynamics"):
+            return self._step_dynamics(state)
+
+    def _step_dynamics(self, state: DycoreState) -> DycoreState:
         cfg = self.config
         grid = self.grid
         u, v, w = state.u, state.v, state.w

@@ -266,8 +266,9 @@ class Physics:
             self.checkpointer("Physics-In", u=state.u, v=state.v, pt=state.pt,
                               delp=state.delp, q=state.q)
         if self.fv_sg_adj > 0.0:
-            pt_adj, q_adj = dry_convective_adjustment(state.pt, state.q, state.delp,
-                                                      self.timestep, self.fv_sg_adj)
+            with stage_range("DryAdjustment"):
+                pt_adj, q_adj = dry_convective_adjustment(state.pt, state.q, state.delp,
+                                                          self.timestep, self.fv_sg_adj)
             state = dataclasses.replace(state, pt=pt_adj, q=q_adj)
         if "RJ_simple_physics" in self.schemes:
             with stage_range("SimplePhysics"):

@@ -29,6 +29,7 @@ from ..parallel.mesh import all_reduce, get_shard_mesh
 from .delnflux import _grad_fluxes
 from .stencil_utils import (
     bcast_k,
+    scalar_like,
     x_cell_to_left_iface,
     x_cell_to_right_iface,
     x_iface_diff,
@@ -67,8 +68,8 @@ def rayleigh_rate(p, ptop: float, rf_cutoff: float, tau: float):
     are true divisions (a Python number divided by a tensor is a reciprocal
     times that number in PyTorch)."""
     safe_top = max(ptop, 1e-3)
-    num = torch.tensor(rf_cutoff, dtype=p.dtype, device=p.device)
-    span = torch.tensor(math.log(rf_cutoff / safe_top), dtype=p.dtype, device=p.device)
+    num = scalar_like(rf_cutoff, p)
+    span = scalar_like(math.log(rf_cutoff / safe_top), p)
     x = torch.log(num / torch.clamp(p, min=safe_top)) / span
     r = (1.0 / tau) * torch.sin(0.5 * math.pi * torch.clamp(x, 0.0, 1.0)) ** 2
     return torch.where(p < rf_cutoff, r, torch.zeros_like(r))

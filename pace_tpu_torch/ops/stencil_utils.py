@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.ranges import host_sync
+
 
 def sx(a: torch.Tensor, n: int) -> torch.Tensor:
     """a shifted so result[..., i] = a[..., i + n]."""
@@ -31,8 +33,12 @@ def sy(a: torch.Tensor, n: int) -> torch.Tensor:
 def scalar_like(x: float, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a 0-dim tensor of ``like``'s dtype and device. Dividing by it
     is a true division on CUDA tensors too: PyTorch turns a division by a
-    Python number into a multiplication by its reciprocal there."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    Python number into a multiplication by its reciprocal there.
+
+    On the card the copy from the host waits for the stream (PyTorch's
+    blocking copy): a host sync, counted under ``scalar_like``."""
+    with host_sync("scalar_like"):
+        return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
 def bcast_k(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

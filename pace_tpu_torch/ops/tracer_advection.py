@@ -23,6 +23,7 @@ import torch
 from .folds import CornerPatch
 from .fvtp2d_kernel import fvtp2d_tracer
 from ..parallel.mesh import all_reduce
+from ..utils.ranges import host_sync
 from .stencil_utils import bcast_k, x_iface_diff, y_iface_diff
 
 #: bound on the runtime-derived sub-cycle count (dynamic=True); a count
@@ -40,11 +41,14 @@ def subcycle_count(crx, cry, n_halo: int, n_split: int = 1) -> int:
     same count. A NaN or infinite maximum gives ``n_split`` (clipped), as
     ``pace_tpu``'s saturating conversion to an integer does.
 
-    One ``.item()``: a host sync that waits for every queued kernel."""
+    One ``.item()``: a host sync that waits for every queued kernel, counted
+    under ``tracer_subcycles``."""
     sl = slice(n_halo, -n_halo) if n_halo else slice(None)
     c_max = all_reduce(torch.maximum(
         crx[..., sl, sl].abs().max(), cry[..., sl, sl].abs().max()
-    ), "max").item()
+    ), "max")
+    with host_sync("tracer_subcycles"):
+        c_max = c_max.item()
     floor = math.floor(c_max) if math.isfinite(c_max) else 0
     return int(min(max(floor + 1, n_split, 1), MAX_DYNAMIC_SUBCYCLES))
 

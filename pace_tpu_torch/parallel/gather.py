@@ -18,12 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.ranges import host_sync
 from .halo import interface_extents
 from .partitioner import CubedSpherePartitioner
 
 
 def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    with host_sync("gather"):
+        return a.detach().cpu().numpy()
 
 
 def gather_tiles(

@@ -35,6 +35,7 @@ import torch
 
 from ..dtypes import resolve_device
 from ..utils.logging import get_logger
+from ..utils.ranges import host_sync
 
 logger = get_logger()
 
@@ -88,10 +89,16 @@ class CubeMesh:
 
     def to_comm(self, t: torch.Tensor) -> torch.Tensor:
         """The tensor as the backend takes it (on the host where staged)."""
-        return t.cpu() if self.host_staged and t.device.type != "cpu" else t
+        if not self.host_staged or t.device.type == "cpu":
+            return t
+        with host_sync("host_staged"):
+            return t.cpu()
 
     def from_comm(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device) if t.device != self.device else t
+        if t.device == self.device:
+            return t
+        with host_sync("host_staged"):
+            return t.to(self.device)
 
 
 _ACTIVE: Optional[CubeMesh] = None

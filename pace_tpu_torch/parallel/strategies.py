@@ -30,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..utils.ranges import host_sync
 from .halo_slabs import HaloUpdateHandle
 
 _GEOMETRY = ("n_halo", "n_tile", "n_shards", "nsy", "nsx", "partitioner")
@@ -142,7 +143,8 @@ class RecordingHalo(_FoldsDefaultsMixin):
 
     def _record(self, tag: str, *arrays):
         for a in arrays:
-            self.records.append(a.detach().cpu().numpy())
+            with host_sync("halo_record"):
+                self.records.append(a.detach().cpu().numpy())
             self._ops.append(tag)
 
     def update_scalar(self, q, stagger: str = "center", fold: str = "x"):
@@ -232,7 +234,9 @@ class NanCheckingHalo(_FoldsDefaultsMixin):
         self.calls += 1
         h = self.n_halo
         for a in arrays:
-            if bool(torch.isnan(a[..., h:-h, h:-h]).any()):
+            with host_sync("nan_check"):
+                nan = bool(torch.isnan(a[..., h:-h, h:-h]).any())
+            if nan:
                 raise FloatingPointError(
                     f"NaN in interior entering {self.name} exchange #{self.calls} ({tag})"
                 )
