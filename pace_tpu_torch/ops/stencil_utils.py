@@ -11,9 +11,11 @@ full stencil width.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
-from ..utils.ranges import host_sync
+from ..utils import ranges
 
 
 def sx(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -30,15 +32,33 @@ def sy(a: torch.Tensor, n: int) -> torch.Tensor:
     return torch.roll(a, -n, dims=-2)
 
 
+#: the 0-dim tensors :func:`scalar_like` has made, by (value, dtype, device)
+_SCALARS: Dict[tuple, torch.Tensor] = {}
+
+
 def scalar_like(x: float, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a 0-dim tensor of ``like``'s dtype and device. Dividing by it
     is a true division on CUDA tensors too: PyTorch turns a division by a
     Python number into a multiplication by its reciprocal there.
 
-    On the card the copy from the host waits for the stream (PyTorch's
-    blocking copy): a host sync, counted under ``scalar_like``."""
-    with host_sync("scalar_like"):
-        return torch.tensor(x, dtype=like.dtype, device=like.device)
+    The tensor is made once per value, dtype and device and handed back on
+    every later call: it is shared, and no caller may write into it. Only
+    the first call for a key copies ``x`` to the device; on the card that
+    copy waits for the stream (PyTorch's blocking copy), a host sync
+    counted under ``scalar_like``. A later call adds one to
+    ``ranges.SCALAR_REUSES`` instead. The keys are configuration constants
+    (6, 3, GRAV, P_REF, the step's ``dt``, ``mdt`` and ``dt2``, ``rf_cutoff``
+    and its log-pressure span), a few dozen in a process, so the cache needs
+    no bound. The value is keyed by its bits (``float.hex``), so ``-0.0``
+    and ``0.0`` stay apart."""
+    key = (float(x).hex(), like.dtype, like.device)
+    t = _SCALARS.get(key)
+    if t is not None:
+        ranges.SCALAR_REUSES += 1
+        return t
+    with ranges.host_sync("scalar_like"):
+        t = _SCALARS[key] = torch.tensor(x, dtype=like.dtype, device=like.device)
+    return t
 
 
 def bcast_k(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

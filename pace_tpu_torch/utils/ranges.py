@@ -38,6 +38,9 @@ _NULL = contextlib.nullcontext()
 SYNCS: Dict[str, int] = collections.Counter()
 #: wall seconds the host spent inside each host_sync site
 SYNC_SECONDS: Dict[str, float] = collections.defaultdict(float)
+#: calls of ``ops.stencil_utils.scalar_like`` that reused a tensor made earlier
+#: (its misses are ``SYNCS["scalar_like"]``)
+SCALAR_REUSES = 0
 
 #: the kernel wrappers whose ``LAUNCHES`` :func:`counters` reads, by module
 _LAUNCH_MODULES = (
@@ -79,8 +82,8 @@ class host_sync:
 def counters() -> Dict[str, float]:
     """One flat dict of the process's counters so far:
     ``syncs.<site>`` and ``sync_seconds.<site>`` of every host_sync site,
-    and ``launches.<kernel>`` of the ten kernel wrappers' ``LAUNCHES``, read
-    in place."""
+    ``scalar_like.reused`` (:data:`SCALAR_REUSES`), and ``launches.<kernel>``
+    of the ten kernel wrappers' ``LAUNCHES``, read in place."""
     import importlib
 
     out: Dict[str, float] = {}
@@ -88,6 +91,7 @@ def counters() -> Dict[str, float]:
         out[f"syncs.{site}"] = n
     for site, s in SYNC_SECONDS.items():
         out[f"sync_seconds.{site}"] = s
+    out["scalar_like.reused"] = SCALAR_REUSES
     for mod in _LAUNCH_MODULES:
         for kernel, n in importlib.import_module(f"pace_tpu_torch.{mod}").LAUNCHES.items():
             out[f"launches.{kernel}"] = n

@@ -577,11 +577,15 @@ def _ranges_of(fn):
 
 
 @pytest.mark.parametrize("hydrostatic", [True, False], ids=["hydrostatic", "nonhydrostatic"])
-def test_the_step_carries_every_stage_range(hydrostatic):
+def test_the_step_carries_every_stage_range(hydrostatic, monkeypatch):
     """The ranges pace_tpu's named scopes mark, at the same places, inside the
     port's ``FVDynamics`` range over the whole step; the host syncs of the
     step (the sub-cycle count, the scalars copied to the device) carry
-    ranges of their own."""
+    ranges of their own. ``scalar_like`` copies a value only the first time
+    a process asks for it, so the step runs with an empty cache."""
+    from pace_tpu_torch.ops import stencil_utils
+
+    monkeypatch.setattr(stencil_utils, "_SCALARS", {})
     mt = MetricTerms.generate(GridSpec(n_tile=12, npz=4, layout=(1, 1)))
     grid = GridData.from_metric_terms(mt, device="cpu", dtype=torch.float64)
     st = DycoreState.from_baroclinic_init(mt, device="cpu", dtype=torch.float64)

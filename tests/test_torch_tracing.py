@@ -6,7 +6,8 @@ always, and a ``HostSync.<site>`` range while a profiler records. The
 Driver's clocks (``mainloop``, ``Physics``, ``Diagnostics``,
 ``SafetyChecks``) open ranges of their own names, and are the clocks the
 perf report writes. Without a profiler no range is entered; with one, the
-state is the same, bit for bit.
+state is the same, bit for bit. ``scalar_like`` makes each 0-dim divisor
+once per value, dtype and device: later steps make no ``scalar_like`` sync.
 """
 
 import dataclasses
@@ -16,6 +17,7 @@ import torch
 
 from pace_tpu_torch.driver.config import DriverConfig
 from pace_tpu_torch.driver.driver import Driver
+from pace_tpu_torch.ops import stencil_utils
 from pace_tpu_torch.utils import ranges
 
 K_SPLIT = 2
@@ -69,10 +71,83 @@ def test_step_counts_its_syncs(driver):
     second = syncs_of(driver.step_all)
     # an output step: one copy to the host per field
     assert second["diagnostics"] == len(NAMES)
-    assert {k: v for k, v in second.items() if k != "diagnostics"} == first
+    # scalar_like copies a value to the device once a process: in the first
+    # step at most, or in none where an earlier driver made the same values
+    assert "scalar_like" not in second
+    assert ({k: v for k, v in second.items() if k != "diagnostics"}
+            == {k: v for k, v in first.items() if k != "scalar_like"})
     c = ranges.counters()
     assert c["syncs.step_end"] >= 2 and c["sync_seconds.step_end"] >= 0.0
     assert "launches.halo" in c and "launches.remap" in c
+
+
+def test_later_steps_make_no_scalar_like_syncs(driver):
+    driver.step_all()
+    reused = []
+    for _ in range(2):
+        before = ranges.SCALAR_REUSES
+        assert "scalar_like" not in syncs_of(driver.step_all)
+        reused.append(ranges.SCALAR_REUSES - before)
+    assert reused[0] == reused[1] > 0
+    assert ranges.counters()["scalar_like.reused"] == ranges.SCALAR_REUSES
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_scalar_like_gives_the_fresh_bits_once(dtype, monkeypatch):
+    import math
+
+    from pace_tpu_torch.constants import GRAV, P_REF
+
+    monkeypatch.setattr(stencil_utils, "_SCALARS", {})
+    like = torch.zeros(3, dtype=dtype)
+    values = [6.0, 3.0, GRAV, P_REF, 225.0, 112.5, 0.1, math.log(750.0 / 3.0), 0.0, -0.0]
+    before = dict(ranges.SYNCS), ranges.SCALAR_REUSES
+    made = [stencil_utils.scalar_like(x, like) for x in values]
+    for x, t in zip(values, made):
+        fresh = torch.tensor(x, dtype=dtype, device=like.device)
+        assert t.dtype == dtype and t.shape == () and _bits(t) == _bits(fresh), x
+        assert stencil_utils.scalar_like(x, like) is t, x
+    assert ranges.SYNCS["scalar_like"] - before[0].get("scalar_like", 0) == len(values)
+    assert ranges.SCALAR_REUSES - before[1] == len(values)
+
+
+def test_the_step_writes_no_cached_scalar(driver):
+    driver.step_all()
+    driver.step_all()
+    assert stencil_utils._SCALARS
+    for (hexval, dtype, device), t in stencil_utils._SCALARS.items():
+        fresh = torch.tensor(float.fromhex(hexval), dtype=dtype, device=device)
+        assert _bits(t) == _bits(fresh), hexval
+
+
+def test_state_does_not_depend_on_the_cache(tmp_path, one_thread, monkeypatch):
+    """Two steps with a fresh tensor at every call, as before the cache, and
+    two with the tensors the cache already holds: the same bits."""
+
+    class NeverKeeps(dict):
+        def __setitem__(self, key, value):
+            pass
+
+    states = []
+    for cached in (False, True):
+        monkeypatch.setattr(stencil_utils, "_SCALARS", {} if cached else NeverKeeps())
+        if cached:
+            Driver(DriverConfig.from_dict(c12_raw(tmp_path / "fill")), device="cpu").step_all()
+        d = Driver(DriverConfig.from_dict(c12_raw(tmp_path / str(cached))), device="cpu")
+        before = dict(ranges.SYNCS)
+        d.step_all()
+        d.step_all()
+        misses = ranges.SYNCS["scalar_like"] - before.get("scalar_like", 0)
+        assert (misses == 0) if cached else (misses > 0)
+        states.append(d.state)
+    for f in dataclasses.fields(states[0]):
+        a, b = getattr(states[0], f.name), getattr(states[1], f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name
 
 
 def test_host_sync_counts_entries_and_seconds(monkeypatch):

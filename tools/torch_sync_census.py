@@ -18,7 +18,8 @@ and then:
    (``utils/ranges.SYNCS``), and the callers of each site are counted;
 2. **window**: ``--window`` unprofiled steps, each site's syncs and host
    seconds a step (``SYNC_SECONDS``), the Driver's clocks a step, each
-   step's wall time;
+   step's wall time, the calls of ``scalar_like`` that reused a tensor
+   (``scalar_like.reused``) and a digest of the state after the window;
 3. **trace**: the cell's ``profile_steps`` steps after a diagnostics step
    under ``torch.profiler`` with the benchmark's ``bench.step`` and
    ``bench.end_of_step`` spans, as the benchmark's traced run takes them:
@@ -148,8 +149,34 @@ def snapshot():
     return dict(ranges.SYNCS), dict(ranges.SYNC_SECONDS)
 
 
+def reused():
+    """Calls of ``scalar_like`` so far that reused a tensor made earlier, read
+    through ``counters()``, which a revision without the counter answers
+    with 0 (the tool can be copied into an older checkout to compare)."""
+    from pace_tpu_torch.utils import ranges
+
+    return ranges.counters().get("scalar_like.reused", 0)
+
+
+def state_digest(state):
+    """sha256 of the bytes of every tensor field of ``state``, in field order:
+    two runs with the same seed give the same digest when every field is the
+    same bit for bit."""
+    import dataclasses
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if isinstance(t, torch.Tensor):
+            h.update(f.name.encode())
+            h.update(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def census_step(driver, census):
     before = snapshot()
+    reused0 = reused()
     step = driver._step_count + 1
     records = census.run(driver.step_all, driver.device.type == "cuda")
     counts, _ = syncs_delta(before)
@@ -157,6 +184,7 @@ def census_step(driver, census):
     callers = collections.Counter(f"{r['site']} <- {r['caller']}" for r in records if r["site"])
     uncovered = collections.Counter(" | ".join(r["stack"]) for r in records if not r["site"])
     return {"step": step, "warnings": len(records), "host_syncs": sum(counts.values()),
+            "scalar_like_reused": reused() - reused0,
             "warnings_by_site": dict(by_site), "host_syncs_by_site": counts,
             "callers": dict(callers.most_common()), "uncovered": dict(uncovered.most_common())}
 
@@ -355,6 +383,7 @@ def run_cell(name, seed, window, device, shrink=None):
 
         # the unprofiled window: whole diagnostics cycles
         before = snapshot()
+        reused0 = reused()
         clocks0 = dict(driver.timer.times), dict(driver.timer.hits)
         walls = []
         harness._sync(device)
@@ -372,6 +401,9 @@ def run_cell(name, seed, window, device, shrink=None):
             "sync_ms_per_step": {k: 1e3 * v / window for k, v in secs.items()},
             "host_syncs_per_step": sum(counts.values()) / window,
             "host_sync_ms": 1e3 * sum(secs.values()) / window,
+            "scalar_like_reused_per_step": (reused() - reused0) / window,
+            "state_step": driver._step_count,
+            "state_sha256": state_digest(driver.state),
             "clock_ms_per_step": {k: 1e3 * (v - clocks0[0].get(k, 0.0)) / window
                                   for k, v in driver.timer.times.items()},
             "clock_hits": {k: v - clocks0[1].get(k, 0) for k, v in driver.timer.hits.items()},
@@ -438,11 +470,14 @@ def main(argv=None):
             continue
         w, c1, c2, tr = r["window"], r["census_window_step"], r["census_output_step"], r["trace"]
         print(f"[{name}] census: window step {c1['warnings']} warnings / {c1['host_syncs']} "
-              f"host_syncs ({c1['warnings_by_site'].get('(uncovered)', 0)} uncovered); output "
+              f"host_syncs ({c1['warnings_by_site'].get('(uncovered)', 0)} uncovered, "
+              f"scalar_like.reused {c1['scalar_like_reused']}); output "
               f"step {c2['warnings']} / {c2['host_syncs']} "
-              f"({c2['warnings_by_site'].get('(uncovered)', 0)} uncovered)", flush=True)
+              f"({c2['warnings_by_site'].get('(uncovered)', 0)} uncovered, "
+              f"scalar_like.reused {c2['scalar_like_reused']})", flush=True)
         print(f"[{name}] window: {1e3 * w['seconds'] / w['steps']:.3f} ms a step, "
-              f"host_syncs_per_step {w['host_syncs_per_step']:.3f}, host_sync_ms "
+              f"host_syncs_per_step {w['host_syncs_per_step']:.3f}, scalar_like.reused a step "
+              f"{w['scalar_like_reused_per_step']:.3f}, host_sync_ms "
               f"{w['host_sync_ms']:.3f}, diagnostics_ms {w['diagnostics_ms']}, clocks "
               + json.dumps({k: round(v, 3) for k, v in w["clock_ms_per_step"].items()}),
               flush=True)
@@ -450,6 +485,8 @@ def main(argv=None):
                                                     w["syncs_per_step"].items()})
               + " ms/step " + json.dumps({k: round(v, 3) for k, v in
                                           w["sync_ms_per_step"].items()}), flush=True)
+        print(f"[{name}] state after step {w['state_step']}: sha256 {w['state_sha256']}",
+              flush=True)
         print(f"[{name}] trace: outside program {tr['outside_program_share']}, idle "
               f"{tr['idle_ms_per_step']:.3f} ms/step, busy {tr['busy_s']:.3f} s of "
               f"{tr['stretch_s']:.3f}, sync_idle host ranges "
