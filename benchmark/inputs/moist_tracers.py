@@ -30,7 +30,7 @@ def saturation_mixing_ratio(t, p):
     return EPS * es / torch.clamp(p - es, min=1.0)
 
 
-def apply(state, params, gen, n_halo):
+def apply(state, params, draws, n_halo):
     q = state.q
     if q.shape[1] != len(TRACER_NAMES):
         raise ValueError(f"the moist recipe fills {len(TRACER_NAMES)} tracers, the state has "
@@ -38,7 +38,7 @@ def apply(state, params, gen, n_halo):
     p_mid = 0.5 * (state.pe[:, 1:] + state.pe[:, :-1])
     qsat = torch.clamp(saturation_mixing_ratio(state.pt * state.pkz, p_mid),
                        max=float(params["qsat_max"]))
-    u = torch.rand(q.shape, generator=gen, device=q.device, dtype=q.dtype)
+    u = draws.rand(q.shape, q)
     lo, hi = params["vapor_fraction"]
     cmax = params["condensate_max"]
     out = torch.empty_like(q)

@@ -12,14 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
 
-
-def apply(state, params, gen, n_halo):
+def apply(state, params, draws, n_halo):
     amp = float(params["amplitude_K"])
     h = n_halo
     pt = state.pt.clone()
     inner = pt[..., h:-h, h:-h]
-    noise = torch.rand(inner.shape, generator=gen, device=pt.device, dtype=pt.dtype)
+    noise = draws.rand(inner.shape, pt)
     inner += amp * (2.0 * noise - 1.0)
     return dataclasses.replace(state, pt=pt)

@@ -6,11 +6,9 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
 
-
-def apply(state, params, gen, n_halo):
+def apply(state, params, draws, n_halo):
     lo, hi = float(params["low"]), float(params["high"])
     q = state.q
-    u = torch.rand(q.shape, generator=gen, device=q.device, dtype=q.dtype)
+    u = draws.rand(q.shape, q)
     return dataclasses.replace(state, q=lo + (hi - lo) * u)

@@ -4,7 +4,9 @@ The only module of the benchmark that imports the program. It builds the
 ``Driver`` from a driver dict as ``python -m pace_tpu_torch.driver.run``
 builds it from a yaml, and hands back what the harness reads: the state,
 the grid, the physics' surface state, the step's clocks and counts, as
-the ``Driver``'s own attributes.
+the ``Driver``'s own attributes. With ``mesh_config.enabled`` the driver
+takes the running process group and holds this rank's block of the shards
+(``Driver.mesh``: its ``lo``, ``hi`` and ``n_shards``).
 """
 
 from __future__ import annotations

@@ -24,6 +24,8 @@ _TINY = 1e-8
 
 #: fields that are metadata, not tensors
 _STATIC_FIELDS = ("ptop", "n_halo", "npz", "da_min", "da_min_c", "corner_table")
+#: tensors of the vertical coordinate, the same for every shard
+_COLUMN_FIELDS = ("ak", "bk")
 
 
 def _band(mask: np.ndarray, axis: int, width: int = 2) -> np.ndarray:
@@ -438,6 +440,25 @@ class GridData:
             da_min=float(mt.area[:, h:-h, h:-h].min()),
             da_min_c=float(mt.area_c[:, h + 1 : -h - 1, h + 1 : -h - 1].min()),
         )
+
+    def shard_block(self, lo: int, hi: int, n_shards: int) -> "GridData":
+        """The grid of shards ``[lo, hi)`` of ``n_shards`` (a rank's block on
+        the mesh, ``parallel/mesh.py``): every S-leading field cut to the
+        block, and each ``corner_table`` entry's ``own`` too, the entries no
+        shard of the block owns left out. ``da_min`` and ``da_min_c`` stay
+        the whole cube's."""
+        changes = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name in _STATIC_FIELDS or f.name in _COLUMN_FIELDS:
+                continue
+            if v.shape[0] != n_shards:
+                raise ValueError(f"GridData.{f.name} has {v.shape[0]} shards, not {n_shards}")
+            changes[f.name] = v[lo:hi].contiguous()
+        changes["corner_table"] = tuple(
+            (kind, jj, ii, own[lo:hi]) for kind, jj, ii, own in self.corner_table
+            if any(own[lo:hi]))
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def from_numpy(cls, arrays: dict, device="cuda", dtype=torch.float32) -> "GridData":

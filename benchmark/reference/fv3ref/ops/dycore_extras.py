@@ -19,6 +19,7 @@ import math
 import torch
 
 from .. import constants
+from ..parallel.mesh import all_reduce, get_shard_mesh
 from ..constants import TRACER_NAMES
 from ..models.shield.microphysics import (
     MicrophysicsConfig,
@@ -236,13 +237,17 @@ def global_energy_fix_increment(te1, te2, cvm, delp, area, n_halo: int, consv: f
         dT = consv * sum((te1 - te2) area) / sum(sum_k(cvm delp) area)
 
     Both sums run over every shard's compute domain (each cell of the cube
-    once): a sum over the stacked shards. Returns
+    once); on one device that is a sum over the stacked shards, on a mesh
+    each rank's sums added over the ranks (one all-reduce of both), as the
+    program's are. Returns
     a 0-dim tensor on the operands' device (no host sync), to be applied as
     ``pt += dT / pkz``."""
     sl = (..., slice(n_halo, -n_halo), slice(n_halo, -n_halo))
     w_area = area[sl]
     dte = torch.sum((te1 - te2)[sl] * w_area)
     denom = torch.sum(torch.sum(cvm * delp, dim=-3)[sl] * w_area)
+    if get_shard_mesh() is not None:
+        dte, denom = all_reduce(torch.stack([dte, denom]), "sum")
     return consv * dte / denom
 
 

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import all_reduce
 from .folds import CornerPatch
 from .fvtp2d import fvtp2d_tracer
 from .stencil_utils import bcast_k, x_iface_diff, y_iface_diff
@@ -34,12 +35,17 @@ def subcycle_count(crx, cry, n_halo: int, n_split: int = 1) -> int:
     """floor(max|c|) + 1 over the compute domain, at least ``n_split``,
     clipped to [1, MAX_DYNAMIC_SUBCYCLES]. The max is taken over interior
     faces only: the corner ghost zones of the halo-padded courant tensors
-    are never read by a stencil and may hold junk. A NaN or infinite maximum gives ``n_split`` (clipped), as
-    ``pace_tpu``'s saturating conversion to an integer does.
+    are never read by a stencil and may hold junk. On a mesh it is the max
+    over every rank's shards (an all-reduce), so that all ranks take the
+    same count, as the program's does. A NaN or infinite maximum gives
+    ``n_split`` (clipped), as ``pace_tpu``'s saturating conversion to an
+    integer does.
 
     One ``.item()``: a host sync that waits for every queued kernel."""
     sl = slice(n_halo, -n_halo) if n_halo else slice(None)
-    c_max = torch.maximum(crx[..., sl, sl].abs().max(), cry[..., sl, sl].abs().max()).item()
+    c_max = all_reduce(torch.maximum(
+        crx[..., sl, sl].abs().max(), cry[..., sl, sl].abs().max()
+    ), "max").item()
     floor = math.floor(c_max) if math.isfinite(c_max) else 0
     return int(min(max(floor + 1, n_split, 1), MAX_DYNAMIC_SUBCYCLES))
 

@@ -358,7 +358,7 @@ class SlabHalo:
     # ------------------------------------------------------------------
     # application: every method runs its plan through ``_exchange`` (the
     # start forms through ``_start``), which a mesh's exchanger
-    # (``halo_shardmap.DistributedHalo``) overrides
+    # (``halo_gather.GatherHalo``) overrides
     # ------------------------------------------------------------------
     def _start(self, inputs, plan: ExchangePlan):
         """Issue the exchange of ``inputs`` by ``plan``; returns the function

@@ -4,6 +4,13 @@ driver configuration, as the program's ``Driver`` builds itself.
 It reads the same configuration dict as the program (the yaml as run, with
 the cell's overrides) and derives its own grid, initial state, dynamical
 core and physics from it. Nothing here imports the program.
+
+With a ``mesh`` (``fv3ref/parallel/mesh.py``: one rank's block of the
+shards over the running process group) the model holds that block, as the
+program's ``Driver`` does with ``mesh_config.enabled``: the grid cut to the
+block, the exchange across ranks (``fv3ref/parallel/halo_gather.py``: the
+one-process exchange on the gathered cube), the whole-cube reductions over
+the ranks while it steps.
 """
 
 from __future__ import annotations
@@ -12,7 +19,7 @@ import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -20,6 +27,7 @@ from .fv3ref.driver.grid import GridConfig
 from .fv3ref.grid.grid_data import GridData
 from .fv3ref.models.fv3.dycore import DynamicalCore, DynamicalCoreConfig
 from .fv3ref.models.fv3.state import DycoreState
+from .fv3ref.parallel.mesh import CubeMesh, shard_mesh
 from .fv3ref.utils.registry import from_dict
 
 #: the physics configs' keys that live in dycore_config (the program's
@@ -35,13 +43,16 @@ class ReferenceModel:
     dycore: DynamicalCore
     physics: Optional[object]
     dt_atmos: float
+    mesh: Optional[CubeMesh] = None
 
     def step(self, state: DycoreState, time_seconds: float) -> DycoreState:
         """One step as the driver's mainloop takes it: the dycore, then the
-        physics at the step's model time."""
-        state = self.dycore.step_dynamics(state)
-        if self.physics is not None:
-            state = self.physics(state, time_seconds)
+        physics at the step's model time (on a mesh, with the mesh active
+        for the reductions)."""
+        with shard_mesh(self.mesh):
+            state = self.dycore.step_dynamics(state)
+            if self.physics is not None:
+                state = self.physics(state, time_seconds)
         return state
 
 
@@ -67,12 +78,14 @@ def _shard_terms(mt, s: int) -> SimpleNamespace:
                            **{k: getattr(mt, k)[s:s + 1] for k in _INIT_TERMS})
 
 
-def initial_state(raw: dict, mt, device, dtype) -> DycoreState:
+def initial_state(raw: dict, mt, device, dtype,
+                  shards: Optional[Sequence[int]] = None) -> DycoreState:
     """The analytic initial state the configuration names (``baroclinic``,
     ``tropicalcyclone``, or ``analytic`` with its ``case``), before the
     benchmark's seeded inputs. Both states are pointwise in the shards, so
     each shard is built on its own thread (the program builds the whole
-    cube in one call); the fields are then stacked."""
+    cube in one call); the fields are then stacked. ``shards``: only those
+    shards, in order (a rank's block; all by default)."""
     from .fv3ref.models.fv3.init_baroclinic import init_baroclinic_state
     from .fv3ref.models.fv3.init_tropical_cyclone import init_tropical_cyclone_state
 
@@ -90,9 +103,9 @@ def initial_state(raw: dict, mt, device, dtype) -> DycoreState:
               else init_tropical_cyclone_state(view))
         return DycoreState._from_init_dict(view, st, "cpu", dtype)
 
-    S = mt.lon_agrid.shape[0]
-    with ThreadPoolExecutor(max_workers=min(S, os.cpu_count() or 1)) as pool:
-        parts = list(pool.map(shard, range(S)))
+    shards = list(range(mt.lon_agrid.shape[0]) if shards is None else shards)
+    with ThreadPoolExecutor(max_workers=min(len(shards), os.cpu_count() or 1)) as pool:
+        parts = list(pool.map(shard, shards))
     fields = {}
     for f in dataclasses.fields(DycoreState):
         vals = [getattr(p, f.name) for p in parts]
@@ -133,16 +146,24 @@ def build_physics(raw: dict, grid, halo, dyc: DynamicalCoreConfig, dt_atmos: flo
     )
 
 
-def build(raw: dict, device, dtype=torch.float32, mt=None) -> ReferenceModel:
+def build(raw: dict, device, dtype=torch.float32, mt=None,
+          mesh: Optional[CubeMesh] = None) -> ReferenceModel:
     """The reference model of the driver configuration ``raw`` on
     ``device`` in ``dtype``; ``mt``: metric terms already derived by
-    :func:`metric_terms` from the same dict."""
+    :func:`metric_terms` from the same dict; ``mesh``: this rank's block of
+    the shards (None: the whole cube)."""
     mt = mt if mt is not None else metric_terms(raw)
     grid = GridData.from_metric_terms(mt, device=device, dtype=dtype)
+    halo = mt.halo
+    if mesh is not None:
+        from .fv3ref.parallel.halo_gather import GatherHalo
+
+        grid = grid.shard_block(mesh.lo, mesh.hi, mesh.n_shards)
+        halo = GatherHalo(mt.halo.slabs, mesh)
     dyc = dycore_config(raw)
     dt = float(raw.get("dt_atmos", 225.0))
-    core = DynamicalCore(grid, mt.halo, dyc, dt)
-    return ReferenceModel(mt, grid, core, build_physics(raw, grid, mt.halo, dyc, dt), dt)
+    core = DynamicalCore(grid, halo, dyc, dt)
+    return ReferenceModel(mt, grid, core, build_physics(raw, grid, halo, dyc, dt), dt, mesh)
 
 
 def state_from_tensors(fields: Dict[str, torch.Tensor], device, dtype) -> DycoreState:

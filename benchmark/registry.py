@@ -4,7 +4,7 @@
   sizes assumed, and the driver's yaml as a dict under ``driver``);
 - ``workloads/<cell>.json``: a cell (its configuration, its overrides of the
   driver dict, its seeded inputs, its profile lengths and its limits);
-- ``inputs/<recipe>.py``: a seed recipe, ``apply(state, params, gen)``;
+- ``inputs/<recipe>.py``: a seed recipe, ``apply(state, params, draws, n_halo)``;
 - ``metrics/<metric>.py``: a per-layer metric reader, ``read(ctx)``.
 
 A later cell, configuration, recipe or metric is a new file here and a new
@@ -22,6 +22,9 @@ from typing import Dict, List
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: where a run writes: the diagnostics store and the driver's perf report,
+#: inside the checkout, emptied at the start of each run of the cell
+RUN_ROOT = ROOT / "build" / "benchmark"
 _NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 

@@ -13,6 +13,10 @@ from a ``torch.profiler`` trace of whole steps, and a ``breakdown``. The
 numbers compared and their limits are the last lines of standard error and
 the line's last key, ``checks``. Without a card it exits with 2 and prints
 no result.
+
+A cell whose ``chips`` is N > 1 runs as N ranks, one card each, through the
+port's mesh (``ranks.py``); the result is rank 0's, printed here once every
+rank has exited 0, and a rank that fails ends the run with no result.
 """
 
 from __future__ import annotations
@@ -66,8 +70,19 @@ def main(argv=None) -> int:
     from benchmark import harness
 
     try:
-        result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                                  device="cuda", t_start=T_START, spec=spec)
+        if chips > 1:
+            from benchmark import program, ranks
+
+            harness.cell_dict(args.workload, n_ranks=chips)  # refuses a layout that does not split
+            # the kernels once, before the ranks start
+            program.build_kernels()
+            result = ranks.launch(args.workload, args.seed, args.seconds, bool(args.trace), chips,
+                                  t_start=T_START)
+            if result is None:
+                return 1
+        else:
+            result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
+                                      device="cuda", t_start=T_START, spec=spec)
     except Exception:
         traceback.print_exc()
         return 1

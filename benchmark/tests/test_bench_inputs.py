@@ -40,6 +40,25 @@ def test_same_seed_same_arrays(state, recipe):
     assert not torch.equal(getattr(a, changed), getattr(state, changed))
 
 
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_a_block_gets_the_whole_cube_numbers(state, recipe):
+    """A rank that holds shards [lo, hi) of the cube applies the recipe to
+    its block and gets the whole cube's numbers there: a run on ranks starts
+    where a run in one process does."""
+    r = [{"recipe": recipe, "params": RECIPES[recipe]}]
+    whole = harness.apply_inputs(state, r, 2**31 + 5, 3)
+    S = state.pt.shape[0]
+    for lo, hi in ((0, 3), (3, 6), (2, 4)):
+        view = dataclasses.replace(state, **{
+            f.name: getattr(state, f.name)[lo:hi] for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)})
+        part = harness.apply_inputs(view, r, 2**31 + 5, 3, (lo, hi, S))
+        for f in dataclasses.fields(state):
+            x = getattr(whole, f.name)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x[lo:hi], getattr(part, f.name)), (f.name, lo, hi)
+
+
 def test_pt_perturbation_bounds(state):
     out = harness.apply_inputs(state, [{"recipe": "pt_perturbation",
                                         "params": {"amplitude_K": 0.05}}], 3, 3)

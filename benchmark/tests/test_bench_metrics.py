@@ -55,6 +55,22 @@ def test_glue_ms():
     assert read("glue_ms", ctx()) == pytest.approx((30 + 20) / 2)
 
 
+def test_nccl_waits_are_no_work():
+    """On a mesh NCCL's kernels spin while they wait for a peer: the harness
+    takes them out before any reader sees the trace, and counts them apart,
+    so that no metric reads a wait as work or as busy time."""
+    nccl = [op("ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)", 110, 38, "bench.step",
+               "DynCore", "HaloExchange"),
+            op("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)", 60, 9,
+               "bench.step", "TracerAdvection", "HostSync.tracer_subcycles")]
+    work, waits = trace.split_nccl(OPS + nccl)
+    assert work == OPS and waits == pytest.approx(0.047)
+    assert trace.split_nccl(OPS) == (OPS, 0.0)
+    c = ctx(work)
+    for name in ("glue_ms", "halo_ms", "device_idle_pct", "tracer_ms"):
+        assert read(name, c) == read(name, ctx()), name
+
+
 def test_kernels_roofline_pct_counts_only_operators_in_the_trace():
     per_step = wm.step_bound(CFG, SHAPES, [1] * 7)
     bound = 2 * sum(per_step[k] for k in ("halo", "sim1", "fvtp2d_tracer", "remap"))

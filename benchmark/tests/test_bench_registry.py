@@ -44,7 +44,10 @@ def test_config_found_by_name(cfg):
 def test_workload_found_by_name(cell):
     data = registry.workload(cell["name"])
     assert data["config"] == cell["config"]
-    assert cell["chips"] == 1
+    assert cell["chips"] in (1, 4)
+    if cell["chips"] > 1:
+        # the cell's layout splits over its ranks (harness.cell_dict)
+        harness.cell_dict(cell["name"], n_ranks=cell["chips"])
     limits = data["limits"]
     assert limits["grid_gap"] == 0.0 and limits["init_gap"] == 0.0
     assert any(k.startswith("step.") for k in limits) and any(k.startswith("diag.") for k in limits)
@@ -61,6 +64,13 @@ def test_workload_found_by_name(cell):
     # every cell reports setup_s, another end-to-end metric and a per-layer one
     assert {"setup_s", "sypd"} <= {m["name"] for m in registry.metrics_of(cell["name"], False)}
     assert registry.metrics_of(cell["name"], True)
+
+
+def test_few_cells_ask_for_four_chips():
+    """At most a quarter of the cells, rounded down, and at least one may
+    take four chips."""
+    four = [w["name"] for w in SPEC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(SPEC["workloads"]) // 4), four
 
 
 @pytest.mark.parametrize("metric", SPEC["per_layer"], ids=lambda m: m["name"])

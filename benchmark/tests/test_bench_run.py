@@ -3,7 +3,6 @@ skipped): the result line's keys, the control and each fault the cells can
 have coming out not correct under the cells' own limits, and the command
 refusing to run without a card."""
 
-import dataclasses
 import io
 import json
 from contextlib import redirect_stdout
@@ -12,6 +11,7 @@ import pytest
 import torch
 
 from benchmark import control, harness, registry, run
+from benchmark.tests import faults
 
 SMALL = {"nx_tile": 12, "nz": 8}
 CELL = "tc_c128"
@@ -27,8 +27,8 @@ def check_steps(monkeypatch):
     steps = []
     take = harness.take_check_step
 
-    def recorded(driver, outs):
-        take(driver, outs)
+    def recorded(driver, outs, **kw):
+        take(driver, outs, **kw)
         steps.append(driver._step_count)
     monkeypatch.setattr(harness, "take_check_step", recorded)
     return steps
@@ -60,40 +60,9 @@ def test_traced_run_reads_per_layer_metrics_on_cpu(check_steps):
 
 @pytest.fixture
 def broken(monkeypatch):
-    """Patch the program's step with one of the faults of the contract."""
-    from pace_tpu_torch.models.fv3 import dycore
-    from pace_tpu_torch.parallel import halo_slabs
-
-    step = dycore.DynamicalCore.step_dynamics
-
-    def apply(fault):
-        if fault == "state unchanged":
-            monkeypatch.setattr(dycore.DynamicalCore, "step_dynamics", lambda self, s: s)
-        elif fault == "half the shards left out":
-            def half(self, s):
-                out = step(self, s)
-                k = s.u.shape[0] // 2
-                return dataclasses.replace(out, **{
-                    f.name: torch.cat([getattr(out, f.name)[:k], getattr(s, f.name)[k:]])
-                    for f in dataclasses.fields(s)
-                    if isinstance(getattr(s, f.name), torch.Tensor)
-                    and isinstance(getattr(out, f.name), torch.Tensor)})
-            monkeypatch.setattr(dycore.DynamicalCore, "step_dynamics", half)
-        elif fault == "exchange left out":
-            def no_exchange(inputs, plan, n_out=None):
-                first = inputs[sorted(inputs)[0]]
-                return {name: (inputs[src].clone() if src is not None else
-                               torch.zeros(first.shape[:-2] + tuple(shape), dtype=first.dtype))
-                        for name, src, shape in plan.outputs}
-            monkeypatch.setattr(halo_slabs, "_exchange", no_exchange)
-        elif fault == "answer altered":
-            def altered(self, s):
-                out = step(self, s)
-                pt = out.pt.clone()
-                pt[0, pt.shape[1] // 2, 9, 9] += 0.5
-                return dataclasses.replace(out, pt=pt)
-            monkeypatch.setattr(dycore.DynamicalCore, "step_dynamics", altered)
-    return apply
+    """Patch the program's step with one of the faults a run can have
+    (``faults.py``)."""
+    return lambda fault: faults.plant(fault, monkeypatch.setattr)
 
 
 @pytest.mark.parametrize("fault", ["state unchanged", "half the shards left out",

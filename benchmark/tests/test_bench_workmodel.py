@@ -85,3 +85,31 @@ def test_step_bound_counts_work_not_launches():
     for forms in wm.calls(cfg, C192, [1] * 7).values():
         for _n, (b, o) in forms:
             assert b / wm.PEAK_BYTES_PER_S >= o / wm.peaks.PEAK_F32_OPS_PER_S
+
+
+def test_a_rank_bound_is_the_cube_bound_over_the_ranks():
+    """C192 at layout [2, 2] (24 shards of 96 x 96) on four ranks: a rank's
+    block of six shards is bound by a quarter of the whole cube's work."""
+    cfg = wm.StepConfig(k_split=7, n_split=8)
+    cube = wm.step_bound(cfg, wm.Shapes(S=24, K=79, nq=9, P=102), [1] * 7)
+    rank = wm.step_bound(cfg, wm.Shapes(S=6, K=79, nq=9, P=102), [1] * 7)
+    assert set(rank) == set(cube)
+    for op in cube:
+        assert rank[op] == pytest.approx(cube[op] / 4, rel=1e-12), op
+    assert sum(rank.values()) == pytest.approx(sum(cube.values()) / 4, rel=1e-12)
+
+
+def test_the_metrics_count_the_rank_block():
+    """The readers' shapes come from the state the rank holds: its block of
+    the shards, not the cube."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from benchmark import harness
+
+    block = SimpleNamespace(delp=torch.empty(6, 79, 102, 102), q=torch.empty(6, 9, 79, 102, 102))
+    driver = SimpleNamespace(state=block, config=SimpleNamespace(
+        dycore_config=wm.StepConfig(k_split=7, n_split=8)))
+    ctx = harness._context(driver, harness.Window(), 3)
+    assert ctx.shapes == wm.Shapes(S=6, K=79, nq=9, P=102)

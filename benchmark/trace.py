@@ -63,6 +63,15 @@ def device_ops(events) -> List[DeviceOp]:
     return out
 
 
+def split_nccl(ops: Sequence[DeviceOp]) -> Tuple[List[DeviceOp], float]:
+    """The operations other than NCCL's kernels, and the seconds of those.
+    An NCCL kernel spins on the card while it waits for its peers, so its
+    time is a wait as much as a transfer, and no metric may read it as
+    work (on one card there is none)."""
+    work = [op for op in ops if not op.name.startswith("nccl")]
+    return work, sum(op.dur_us for op in ops if op.name.startswith("nccl")) / 1e6
+
+
 def attribute(ops: Iterable[DeviceOp], stages: Sequence[str]) -> Dict[str, float]:
     """Device seconds per stage: each operation to the innermost of its
     ranges that is one of ``stages``, else to ``"other"``."""
